@@ -3,7 +3,7 @@ Dirichlet grid Laplacian, print its nnz pattern, set boundary rhs, run one
 SpMV, then go further than the reference's commented-out section and actually
 solve with BiCGStab.
 
-Run: python examples/demo.py   (uses CPU; no TPU required)
+Run: python examples/demo.py   (CPU is fine; no accelerator required)
 """
 
 import os

@@ -1,8 +1,9 @@
 """Distributed solve walkthrough on a virtual 8-device CPU mesh.
 
-Shows the three row-partitioning strategies and that the same solver code
-runs single-chip and multi-chip. On a real pod, drop the CPU overrides and
-pass a mesh over `jax.devices()`.
+Shows the row-partitioning strategies and that the same solver code runs
+on one device and on a mesh. On real cards, drop the CPU overrides and pass
+a mesh over `jax.devices()` (``python chip_smoke.py --four-cards`` does so
+at 10M rows).
 
 Run: python examples/distributed_demo.py
 """
@@ -23,7 +24,6 @@ import jax.numpy as jnp
 
 import sprsolve_tpu as sp
 from sprsolve_tpu.parallel import (
-    DistPaddedDIA,
     distributed_solve,
     partition_csr,
     partition_dia,
@@ -51,15 +51,6 @@ def main():
     # 2. banded: neighbor ppermute halo (boundary slices only)
     x, info = distributed_solve(sp.bicgstab, A.to_dia(), b, M=M, tol=1e-12, max_iter=500)
     check("HaloDIA + Jacobi", x, info)
-
-    # 3. production path: per-shard Pallas kernel fed by the halo exchange
-    #    (interpret mode here since this demo runs on CPU)
-    from sprsolve_tpu import debug
-
-    op = DistPaddedDIA.from_dia(A.to_dia(), 8, lanes=256, block_rows=8)
-    with debug.interpret_kernels():
-        x, info = distributed_solve(sp.bicgstab, op, b, M=M, tol=1e-12, max_iter=500)
-    check("DistPaddedDIA (pallas)", x, info)
 
     # same solver, single-chip, for comparison
     x, info = sp.bicgstab(A.to_dia(), b, M=M, tol=1e-12, max_iter=500)

@@ -2,7 +2,7 @@
 small problems, with true-residual checks.  A user of the reference crate
 switching over can skim this file to find each capability.
 
-Run: python examples/tour.py   (CPU is fine; Pallas kernels auto-interpret)
+Run: python examples/tour.py   (CPU is fine)
 """
 
 import io

@@ -1,12 +1,12 @@
-"""sprsolve_tpu — TPU-native sparse iterative linear solvers.
+"""sprsolve_tpu — sparse iterative linear solvers on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-``sprsolve`` Rust crate (BiCGStab, MINRES, CS-MINRES, Gauss-Seidel over
-CSR/COO/ELL/DIA sparse matrices, f32/f64/c64/c128, diagonal preconditioning),
-re-designed for TPU: solvers are jittable ``lax.while_loop`` programs over
-operator pytrees, SpMV executes in regular ELL/DIA layouts (with Pallas
-kernels for the hot paths), and multi-chip scaling uses row-partitioned
-operators under ``shard_map`` with psum inner products and halo exchange.
+A from-scratch JAX framework with the capabilities of the ``sprsolve`` Rust
+crate (BiCGStab, MINRES, CS-MINRES, Gauss-Seidel over CSR/COO/ELL/DIA sparse
+matrices, f32/f64/c64/c128, diagonal preconditioning), re-designed for an
+accelerator: solvers are jittable ``lax.while_loop`` programs over operator
+pytrees, SpMV executes in regular DIA/BSR/ELL layouts that XLA fuses, and
+multi-device scaling uses row-partitioned operators under ``shard_map`` with
+psum inner products and halo exchange.
 
 Public surface mirrors the reference re-exports (``src/lib.rs:15-21``).
 """
@@ -22,7 +22,6 @@ from .ops.operator import (
 )
 from .ops.hybrid import HybridDIA
 from .ops.optimize import optimize
-from .ops.pallas_spmv import ComplexPaddedDIA, PaddedDIA
 from .multigrid import GridMGPrecond
 from .precond import (
     BlockJacobiPrecond,
@@ -65,7 +64,6 @@ from .solvers import (
     tfqmr,
     refine,
     refine_solve,
-    with_real_planes,
 )
 from .sparse import BSR, ComplexBSR, COO, CSC, CSR, DIA, ELL, csr_from_bcoo, csr_from_dense, csr_from_scipy, reorder_rcm
 
@@ -103,7 +101,6 @@ __all__ = [
     "rational_filter_eigs",
     "shift_invert_eigs",
     "cs_minres",
-    "with_real_planes",
     "gauss_seidel",
     "gauss_seidel_redblack",
     "ColoredELL",
@@ -138,8 +135,6 @@ __all__ = [
     "RelayedPrecond",
     "optimize",
     "HybridDIA",
-    "PaddedDIA",
-    "ComplexPaddedDIA",
     "SolveInfo",
     "SolverError",
     "Status",

@@ -255,7 +255,7 @@ def main(argv=None):
     p_solve.add_argument("--out", help="write the solution to this .npy file")
     p_solve.add_argument(
         "--f32", action="store_true",
-        help="downcast the system to f32/c64 (the TPU kernel dtypes)",
+        help="downcast the system to f32/c64 (half the bytes per SpMV)",
     )
     p_solve.add_argument(
         "--refine", action="store_true",
@@ -293,7 +293,8 @@ def main(argv=None):
     p_eig.add_argument(
         "--precond", default="none", choices=["none", "jacobi", "mg"],
         help="LOBPCG preconditioner (LA/SA only): 'mg' needs --grid and is "
-        "the production choice at scale (see BENCH_NOTES Eigen table)",
+        "the choice at scale (unpreconditioned LOBPCG is gap-limited on "
+        "grid operators)",
     )
     p_eig.add_argument(
         "--grid", default=None,

@@ -1,11 +1,8 @@
 """Debugging aids (SURVEY.md §5 "race detection / sanitizers" row).
 
 JAX's functional purity eliminates the reference's aliasing/`unsafe` bug
-class; what remains is numerical debugging (NaNs, kernel bugs).  Tools:
+class; what remains is numerical debugging (NaNs, operator bugs).  Tools:
 
-- :func:`interpret_kernels` — context manager forcing all Pallas kernels in
-  this package through the interpreter (runs on CPU, bit-accurate oracle);
-  the kernel-validation story prescribed by SURVEY §5.
 - :func:`check_operator` — sanity harness for a LinearOperator: linearity,
   matvec/matvec_dot consistency, dtype stability, finiteness.
 - NaN hunting: enable ``jax.config.update("jax_debug_nans", True)`` and rerun
@@ -14,56 +11,15 @@ class; what remains is numerical debugging (NaNs, kernel bugs).  Tools:
 
 from __future__ import annotations
 
-import contextlib
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-
-
-def _clear_kernel_caches():
-    """Drop every jitted pallas-call wrapper so the _INTERPRET flag is
-    re-read at the next trace (a kernel cached in the other mode would
-    silently run compiled inside / interpreted outside the context)."""
-    from .ops import pallas_fused as pf
-    from .ops import pallas_spmv as ps
-
-    for f in (
-        ps._dia_pallas_call,
-        ps._dia_dotmv_pallas_call,
-        ps._dia_wdot_pallas_call,
-        ps._dia_complex_pallas_call,
-        ps._dia_complex_dotmv_pallas_call,
-        ps._dia_complex_wdot_pallas_call,
-        pf.fused_orth_norm_call,
-    ):
-        f.clear_cache()
-
-
-@contextlib.contextmanager
-def interpret_kernels():
-    """Force the package's Pallas kernels into interpreter mode.
-
-    Toggles the package-local ``_INTERPRET`` indirection (the shared
-    ``jax.experimental.pallas`` module is never monkey-patched) and clears
-    all jitted kernel wrappers on enter and exit."""
-    from .ops import pallas_spmv as ps
-
-    prev = ps._INTERPRET[0]
-    ps._INTERPRET[0] = True
-    _clear_kernel_caches()
-    try:
-        yield
-    finally:
-        ps._INTERPRET[0] = prev
-        _clear_kernel_caches()
 
 
 def check_operator(op, x_example, rtol=None, seed=0):
     """Sanity checks on a LinearOperator. Raises AssertionError on failure.
 
     ``x_example`` supplies the vector shape/dtype the operator consumes
-    (e.g. ``padded.pad_vec(jnp.zeros(n))`` for kernel-layout operators).
+    (e.g. ``op.pad_vec(jnp.zeros(n))`` for reordered operators).
     """
     rng = np.random.default_rng(seed)
     shape, dtype = x_example.shape, x_example.dtype

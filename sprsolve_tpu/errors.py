@@ -5,7 +5,7 @@ reference returns ``SolveResult<(usize, T::Real)>`` where the error enum is
 {IncompatibleMatrixFormat, ZeorDiagonalElem, InsufficientIterNum, BreakDown,
 InvalidPreconditioner}.
 
-TPU-native design: solves run inside ``jax.lax.while_loop``; early returns are
+Design: solves run inside ``jax.lax.while_loop``; early returns are
 impossible under XLA, so termination reasons are carried through the loop state
 as an integer *status code* and surfaced after the loop.  The functional API
 returns a :class:`SolveInfo`; the object API (``sprsolve_tpu.api``) converts a

@@ -5,7 +5,7 @@ Beyond the reference's surface (its only preconditioner is the diagonal,
 preconditioner for the elliptic/stencil problems every workload in the
 reference's test and bench suites comes from (grid Laplacians,
 ``tests/test_solvers.rs:74-109``; 3-D Poisson, BASELINE config #4) — and
-because its TPU formulation is unusually clean:
+because its array formulation is unusually clean:
 
 - **Transfers are reshapes, not gathers.**  Restriction sums 2×…×2 blocks
   of the grid view (``reshape`` + ``sum``); prolongation broadcasts and
@@ -148,9 +148,7 @@ class GridMGPrecond:
     ) -> "GridMGPrecond":
         """Build the hierarchy from a host CSR whose rows are the points of
         ``grid`` (row-major).  ``layout_kwargs`` forward to
-        :func:`~sprsolve_tpu.ops.optimize` for each level's operator
-        (default: the XLA DIA layout; Pallas layouts stay off because the
-        smoother runs inside preconditioner applies)."""
+        :func:`~sprsolve_tpu.ops.optimize` for each level's operator."""
         from .errors import IncompatibleMatrixFormat
         from .ops.optimize import optimize
 
@@ -159,8 +157,6 @@ class GridMGPrecond:
             raise IncompatibleMatrixFormat(
                 f"grid {grid} has {n} points but A is {A.shape[0]}×{A.shape[1]}"
             )
-        layout_kwargs.setdefault("prefer_pallas", False)
-
         ops, dinvs, grids = [], [], []
         csr, g = A, tuple(int(x) for x in grid)
         for _ in range(max_levels):
@@ -172,7 +168,7 @@ class GridMGPrecond:
                 else np.asarray(csr.diagonal())
             )
             lvl_op = optimize(csr, **layout_kwargs)
-            if hasattr(lvl_op, "pad_vec"):  # Pallas layout: flat view
+            if hasattr(lvl_op, "pad_vec"):  # reordered layout: flat view
                 lvl_op = FlatViewOperator(op=lvl_op)
             ops.append(lvl_op)
             dinvs.append(jnp.asarray(np.where(diag == 0, 1.0, 1.0 / diag)))
@@ -209,8 +205,9 @@ class GridMGPrecond:
 
     def _cycle(self, lvl, r):
         if lvl == len(self.ops):
-            # HIGHEST: the MXU's default bf16 inputs would smear the
-            # coarse correction (and with it the V-cycle's contraction)
+            # HIGHEST: a default-precision f32 matmul may run in TF32,
+            # which would smear the coarse correction (and with it the
+            # V-cycle's contraction)
             return jnp.matmul(
                 self.coarse_inv.astype(r.dtype), r,
                 precision=jax.lax.Precision.HIGHEST,
@@ -241,14 +238,11 @@ jax.tree_util.register_dataclass(
 
 @dataclasses.dataclass(frozen=True)
 class FlatViewOperator:
-    """Flat-vector view of a padded-layout operator.
+    """Flat-vector view of an operator with its own vector layout.
 
     The V-cycle's smoothers and transfers work on flat (n,) vectors; a
-    Pallas ``PaddedDIA`` level operator works in its internal (rows, lanes)
-    layout.  This wrapper round-trips each apply — pad/unpad are reshapes
-    (~2 vector passes), cheap against the ~15 passes the XLA DIA path spends
-    per SpMV, so ``GridMGPrecond.from_csr(..., prefer_pallas=True)`` puts
-    the kernel on the smoothing path at a small fixed cost."""
+    ``Reordered`` level operator works in its permuted layout.  This wrapper
+    round-trips each apply through ``pad_vec``/``unpad_vec``."""
 
     op: object
 

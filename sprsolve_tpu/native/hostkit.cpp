@@ -1,6 +1,6 @@
 // Native host toolkit for sprsolve_tpu.
 //
-// The TPU executes the solves (XLA/Pallas); this library covers the
+// The accelerator executes the solves (XLA); this library covers the
 // CPU-side preprocessing that the reference delegates to native code
 // (MKL's inspector/optimize stage, src/mkl_mat.rs:81-148, and sprs's
 // CSR machinery): operator "optimization" = layout analysis, graph

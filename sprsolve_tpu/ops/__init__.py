@@ -8,7 +8,6 @@ from .operator import (
     as_operator,
 )
 from .optimize import optimize
-from .pallas_spmv import ComplexPaddedDIA, PaddedDIA
 from .spmv import spmv_coo, spmv_csr, spmv_ell, spmv_dia
 
 __all__ = [
@@ -18,8 +17,6 @@ __all__ = [
     "ShiftedOperator",
     "as_operator",
     "optimize",
-    "PaddedDIA",
-    "ComplexPaddedDIA",
     "spmv_coo",
     "spmv_csr",
     "spmv_ell",

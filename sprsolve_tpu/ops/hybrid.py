@@ -1,30 +1,25 @@
-"""Hybrid band+outlier operator: banded core at kernel speed + tiny COO rest.
+"""Hybrid band+outlier operator: banded DIA core + tiny COO rest.
 
-Closes the fast-path CLIFF the round-4 judge flagged in the layout
-optimizer (VERDICT r4 missing #1): one long-range row — a constraint
-coupling, a global Lagrange multiplier, a periodic-boundary stitch — makes
-the diagonal count explode past every DIA/RCM threshold, and the whole
-matrix used to fall from ~300 Gnnz/s (Pallas DIA) to the warned ELL gather
-path (~0.1 Gnnz/s, three orders of magnitude).  The fix mirrors the
+Closes the fast-path cliff of the layout optimizer: one long-range row — a
+constraint coupling, a global Lagrange multiplier, a periodic-boundary
+stitch — makes the diagonal count explode past every DIA/RCM threshold, and
+the whole matrix used to fall to the ELL gather path.  The fix mirrors the
 classical HYB format (Bell & Garland's ELL+COO split), re-targeted at this
 package's band decomposition: keep the offsets that carry almost all the
-nnz as a DIA/PaddedDIA core, and spill the few remaining entries to a
-coordinate sidecar applied with a scatter-add.
+nnz as a DIA core, and spill the few remaining entries to a coordinate
+sidecar applied with a scatter-add.
 
-The sidecar's per-element cost is the measured XLA gather/scatter rate
-(~0.14 Gelem/s on v5e — `tools/probe_unstructured.py`), which is exactly
-why it must stay SMALL: `optimize()` prices it explicitly against the
-other layouts and only routes here when the split wins.  For TRULY
-unstructured patterns (no dominant offsets) the split cannot win — that
-ceiling is architectural, see the measured-negative note in BENCH_NOTES
-("Unstructured sparsity") — but for the large practical class of
-"structured + a few couplings" matrices this restores kernel speed.
+The sidecar's per-element cost is the measured gather+scatter rate
+(``SCATTER_BYTES_EQ`` in ``ops/optimize.py``), which is why it must stay
+SMALL: ``optimize()`` prices it explicitly against the other layouts and
+only routes here when the split wins.  For truly unstructured patterns (no
+dominant offsets) the split cannot win; for the large practical class of
+"structured + a few couplings" matrices it keeps the banded speed.
 
 Reference bar: ``mkl_sparse_?_mv`` serves arbitrary CSR at memory speed
-(``/root/reference/src/mkl_mat.rs:170-239``); on TPU the equivalent
-*contract* (no structural prerequisites, never a silent 1000× cliff) is
-met by this split plus the optimizer's pricing — the *rate* on
-structure-free patterns is bounded by the chip's gather primitives.
+(``/root/reference/src/mkl_mat.rs:170-239``); the equivalent *contract* here
+(no structural prerequisites, never a silent cliff) is met by this split
+plus the optimizer's pricing.
 """
 
 from __future__ import annotations
@@ -43,10 +38,9 @@ from ..sparse.containers import CSR, DIA
 class HybridDIA:
     """Banded core (flat-vector operator) + sorted-COO outlier sidecar.
 
-    ``core`` is any flat-vector banded operator (``DIA``, or a Pallas
-    ``PaddedDIA`` wrapped for flat vectors); outliers are (row, col, val)
-    arrays sorted by row.  The operator itself works on flat vectors — no
-    ``pad_vec`` — so every solver and preconditioner composes unchanged.
+    ``core`` is the banded ``DIA``; outliers are (row, col, val) arrays
+    sorted by row.  The operator works on flat vectors — no ``pad_vec`` —
+    so every solver and preconditioner composes unchanged.
     """
 
     core: object
@@ -69,7 +63,6 @@ class HybridDIA:
         *,
         max_diags: int = 32,
         max_outliers: int | None = None,
-        prefer_pallas: bool = True,
     ) -> "HybridDIA":
         """Split ``m`` into its ``max_diags`` heaviest offsets + the rest.
 
@@ -86,16 +79,12 @@ class HybridDIA:
         uniq, inv, counts = np.unique(offs, return_inverse=True,
                                       return_counts=True)
         # keep an offset as a band only when it EARNS its full n-length
-        # stream: a band costs ~n·itemsize/0.85 effective bytes per SpMV,
-        # one sidecar entry ~5850 (the measured scatter rate expressed as
-        # bytes at HBM speed — ops/optimize.py) — so an offset with fewer
-        # than ~n/1200 entries is cheaper spilled.  Without this floor,
-        # sparse junk offsets (1-2 entries each) filled the max_diags
-        # budget with near-empty bands and blew the Pallas kernel's VMEM
-        # at 1M rows (round-5 on-chip bench).
-        n_rows = m.shape[0]
-        itemsize = np.dtype(data.dtype).itemsize
-        min_count = max(4, int(n_rows * itemsize / 0.85 / 5850.0))
+        # stream (ops.optimize.band_min_count); without this floor, sparse
+        # junk offsets (1-2 entries each) fill the max_diags budget with
+        # near-empty bands
+        from .optimize import band_min_count
+
+        min_count = band_min_count(m.shape[0], np.dtype(data.dtype).itemsize)
         order = np.argsort(counts)[::-1]
         order = order[counts[order] >= min_count][:max_diags]
         keep_ids = set(order.tolist())
@@ -120,13 +109,7 @@ class HybridDIA:
         core_csr = CSR.from_arrays(
             core_data, core_cols.astype(np.int32), indptr, m.shape
         )
-        dia = DIA.from_csr(core_csr, max_diags=max(max_diags, len(keep_ids)))
-        core = dia
-        if prefer_pallas and dia.bands.dtype == jnp.float32:
-            from ..multigrid import FlatViewOperator
-            from .pallas_spmv import PaddedDIA
-
-            core = FlatViewOperator(op=PaddedDIA.from_dia(dia))
+        core = DIA.from_csr(core_csr, max_diags=max(max_diags, len(keep_ids)))
 
         out_order = np.argsort(rows[~keep_mask], kind="stable")
         return HybridDIA(
@@ -157,9 +140,7 @@ class HybridDIA:
 
     def diagonal(self) -> jax.Array:
         # offset 0 is pinned into the core by construction
-        if hasattr(self.core, "diagonal"):
-            return self.core.diagonal()
-        return self.core.op.unpad_vec(self.core.op.diagonal_padded())
+        return self.core.diagonal()
 
 
 jax.tree_util.register_dataclass(

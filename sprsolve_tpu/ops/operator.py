@@ -1,4 +1,4 @@
-"""The LinearOperator protocol — TPU-native analog of the reference's
+"""The LinearOperator protocol — the analog of the reference's
 ``MatVecMul`` trait (``src/mat.rs:12-37``).
 
 Anything with ``shape``, ``dtype``, ``matvec(x)`` and ``matvec_dot(x)`` is an
@@ -36,54 +36,26 @@ class LinearOperator(Protocol):
 
 def mv_conj_dot(A, x: jax.Array, axis_name=None):
     """(y = A·conj(x), conj(x)·y) — the CS-MINRES Saunders step
-    (``src/cs_minres.rs:99-103``). Fused single-pass form on operators
-    providing ``matvec_conj_dot`` (the two-plane kernel folds the
-    conjugation into the accumulation); composed conj→matvec→dot
-    otherwise. The dot is the *unconjugated* product of conj(x) with y,
-    which equals ``conj_dot(x, y)``."""
-    from ..vecalg import _psum_if, conj, conj_dot
+    (``src/cs_minres.rs:99-103``).  The dot is the *unconjugated* product of
+    conj(x) with y, which equals ``conj_dot(x, y)``; XLA fuses the
+    conjugation into the SpMV's input and the dot into its output pass."""
+    from ..vecalg import conj, conj_dot
 
-    fn = getattr(A, "matvec_conj_dot", None)
-    if fn is not None:
-        y, d = fn(x)
-        return y, _psum_if(d, axis_name)
     y = A.matvec(conj(x))
     return y, conj_dot(x, y, axis_name)
 
 
 def mv_wdot(A, x: jax.Array, w: jax.Array, axis_name=None):
-    """(y = A·x, conj(w)·y) with the dot folded into the SpMV pass when the
-    operator provides ``matvec_wdot`` (the w-vector analog of dotmv). The
-    fused form returns *local* partials; ``axis_name`` makes the result
-    collective, matching :func:`~sprsolve_tpu.vecalg.conj_dot`."""
-    from ..vecalg import _psum_if, conj_dot
+    """(y = A·x, conj(w)·y); ``axis_name`` makes the dot collective,
+    matching :func:`~sprsolve_tpu.vecalg.conj_dot`."""
+    from ..vecalg import conj_dot
 
-    fn = getattr(A, "matvec_wdot", None)
-    if fn is not None:
-        y, wd, _ = fn(x, w)
-        return y, _psum_if(wd, axis_name)
     y = A.matvec(x)
     return y, conj_dot(w, y, axis_name)
 
 
 def mv_prec_wdot(A, M, x: jax.Array, w: jax.Array, axis_name=None):
-    """(u = M⁻¹·x, y = A·u, conj(w)·y) with a *diagonal* M folded into the
-    SpMV input stage where the operator supports ``matvec_wdot_prec`` (or
-    ``matvec_wdot_cprec`` for a complex diagonal); the returned u is then a
-    lazy elementwise expression XLA fuses into its consumer (BiCGStab's
-    x-update), not a materialized pass."""
-    from ..precond import ComplexDiagPrecond, DiagPrecond
-    from ..vecalg import _psum_if
-
-    fn = getattr(A, "matvec_wdot_prec", None)
-    if fn is not None and type(M) is DiagPrecond:
-        y, wd, _ = fn(x, w, M.diag_inv)
-        return x * M.diag_inv, y, _psum_if(wd, axis_name)
-    cfn = getattr(A, "matvec_wdot_cprec", None)
-    if cfn is not None and type(M) is ComplexDiagPrecond:
-        y, wd, _ = cfn(x, w, M.inv_re, M.inv_im)
-        u = x * (M.inv_re + 1j * M.inv_im).astype(x.dtype)
-        return u, y, _psum_if(wd, axis_name)
+    """(u = M⁻¹·x, y = A·u, conj(w)·y) — BiCGStab's first half."""
     u = M.matvec(x)
     y, wd = mv_wdot(A, u, w, axis_name)
     return u, y, wd
@@ -92,18 +64,6 @@ def mv_prec_wdot(A, M, x: jax.Array, w: jax.Array, axis_name=None):
 def mv_prec_wdot2(A, M, x: jax.Array, w: jax.Array, axis_name=None):
     """(u = M⁻¹·x, y = A·u, conj(w)·y, conj(y)·y) — the second-half variant
     of :func:`mv_prec_wdot`."""
-    from ..precond import ComplexDiagPrecond, DiagPrecond
-    from ..vecalg import _psum_if
-
-    fn = getattr(A, "matvec_wdot_prec", None)
-    if fn is not None and type(M) is DiagPrecond:
-        y, wd, yd = fn(x, w, M.diag_inv)
-        return x * M.diag_inv, y, _psum_if(wd, axis_name), _psum_if(yd, axis_name)
-    cfn = getattr(A, "matvec_wdot_cprec", None)
-    if cfn is not None and type(M) is ComplexDiagPrecond:
-        y, wd, yd = cfn(x, w, M.inv_re, M.inv_im)
-        u = x * (M.inv_re + 1j * M.inv_im).astype(x.dtype)
-        return u, y, _psum_if(wd, axis_name), _psum_if(yd, axis_name)
     u = M.matvec(x)
     y, wd, yd = mv_wdot2(A, u, w, axis_name)
     return u, y, wd, yd
@@ -111,13 +71,9 @@ def mv_prec_wdot2(A, M, x: jax.Array, w: jax.Array, axis_name=None):
 
 def mv_wdot2(A, x: jax.Array, w: jax.Array, axis_name=None):
     """(y = A·x, conj(w)·y, conj(y)·y) — both of BiCGStab's post-SpMV
-    reductions in the SpMV pass where the operator supports it."""
-    from ..vecalg import _psum_if, conj_dot
+    reductions."""
+    from ..vecalg import conj_dot
 
-    fn = getattr(A, "matvec_wdot", None)
-    if fn is not None:
-        y, wd, yd = fn(x, w)
-        return y, _psum_if(wd, axis_name), _psum_if(yd, axis_name)
     y = A.matvec(x)
     return y, conj_dot(w, y, axis_name), conj_dot(y, y, axis_name)
 
@@ -192,13 +148,15 @@ class _DenseOperator:
     def dtype(self):
         return self.a.dtype
 
+    # HIGHEST: a default-precision f32 matmul may run in TF32 (~3 decimal
+    # digits), and a solver's matvec must be exact to the working dtype
     def matvec(self, x: jax.Array) -> jax.Array:
-        return self.a @ x
+        return jnp.matmul(self.a, x, precision=jax.lax.Precision.HIGHEST)
 
     def matvec_dot(self, x: jax.Array):
         from ..vecalg import conj_dot
 
-        y = self.a @ x
+        y = self.matvec(x)
         return y, conj_dot(x, y)
 
 
@@ -213,10 +171,10 @@ class ShiftedOperator:
     the axpy into the operator's output write).  Enables spectral
     transformations — ``scipy.sparse.linalg.minres(..., shift=σ)`` parity,
     shift-invert-style eigencomputations, Helmholtz-like A − σI solves —
-    for every execution layout, including the padded Pallas kernels (the
-    wrapper forwards ``pad_vec``/``unpad_vec`` so a shifted PaddedDIA still
-    runs in its internal layout; build Jacobi preconditioners from
-    ``diagonal()``, which includes the shift).
+    for every execution layout (the wrapper forwards ``pad_vec``/
+    ``unpad_vec`` so a shifted ``Reordered`` operator still runs in its
+    permuted layout; build Jacobi preconditioners from ``diagonal()``, which
+    includes the shift).
     """
 
     A: object
@@ -244,27 +202,21 @@ class ShiftedOperator:
             return self.A.matmat(X) - self.shift * X
         return jax.vmap(self.matvec, in_axes=1, out_axes=1)(X)
 
-    # forward the padded-layout protocol so shifted kernel operators keep
-    # solving in their internal layout
+    # forward the internal-layout protocol so shifted reordered operators
+    # keep solving in their permuted layout
     def __getattr__(self, name):
         if name in ("pad_vec", "unpad_vec"):
             return getattr(self.A, name)
         raise AttributeError(name)
 
     def diagonal(self) -> jax.Array:
-        """Flat shifted diagonal (padded inner operators are un-laid)."""
-        if hasattr(self.A, "diagonal"):
-            d = self.A.diagonal()
-        elif hasattr(self.A, "diagonal_padded"):
-            d = self.A.unpad_vec(self.A.diagonal_padded())
-        else:
-            raise AttributeError("diagonal")
-        return d - self.shift
+        """Flat shifted diagonal."""
+        return self.A.diagonal() - self.shift
 
     def jacobi_precond(self):
         """Jacobi preconditioner of the *shifted* operator: 1/(diag(A) − σ),
         re-laid into the inner operator's internal layout when it has one
-        (the path solve(..., M='jacobi') takes for padded operators)."""
+        (the path solve(..., M='jacobi') takes for reordered operators)."""
         from ..precond import DiagPrecond
 
         M = DiagPrecond.new(self.diagonal())

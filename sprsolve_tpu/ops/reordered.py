@@ -23,7 +23,8 @@ class Reordered:
     """Wraps an operator built from A' = A[perm, perm].
 
     ``pad_vec`` maps an original-order vector into the inner layout
-    (permute + inner pad); ``unpad_vec`` inverts it.  ``matvec``/
+    (permute, then the inner operator's own ``pad_vec`` if it has one);
+    ``unpad_vec`` inverts it.  ``matvec``/
     ``matvec_dot``/``jacobi_precond`` delegate to the inner operator —
     inside the solver iteration everything is in permuted layout.
 
@@ -47,17 +48,8 @@ class Reordered:
         )
 
     @property
-    def _prefers_nested_restart(self):
-        # wrapper is transparent to the solver's loop-structure choice
-        return getattr(self.inner, "_prefers_nested_restart", False)
-
-    @property
     def shape(self):
         return self.inner.shape
-
-    @property
-    def n(self):
-        return self.inner.n
 
     @property
     def dtype(self):
@@ -65,6 +57,8 @@ class Reordered:
 
     def pad_vec(self, x: jax.Array) -> jax.Array:
         xp = jnp.take(jnp.asarray(x), self.perm, axis=0)
+        # the inner operator may itself be Reordered (optimize() of an
+        # already-permuted matrix)
         return self.inner.pad_vec(xp) if hasattr(self.inner, "pad_vec") else xp
 
     def unpad_vec(self, x2: jax.Array) -> jax.Array:

@@ -1,18 +1,16 @@
 """SpMV implementations (pure XLA paths).
 
 Replaces the reference's CSR row-loop SpMV (``src/mat.rs:68-143``, rayon
-threads) and MKL sparse mv/dotmv (``src/mkl_mat.rs:170-319``).  On TPU the
-parallelism is expressed as whole-array ops the compiler tiles onto the VPU:
+threads) and MKL sparse mv/dotmv (``src/mkl_mat.rs:170-319``).  The
+parallelism is expressed as whole-array ops that XLA fuses into kernels:
 
 - ``spmv_coo`` / ``spmv_csr``: gather x at column indices, multiply, row-wise
   segment-sum. Static shapes, fully general. The correctness oracle.
 - ``spmv_ell``: (n, k) regular layout — gather + row reduction, no segment
   machinery; XLA fuses it into one pass.
 - ``spmv_dia``: banded fast path — every x access is a contiguous shifted
-  slice (zero irregular access; speed-of-light for stencils).
-
-The Pallas kernels live in ``pallas_spmv.py``; these XLA versions double as
-their bit-accuracy oracles.
+  slice (zero irregular access; speed-of-light for stencils).  XLA fuses
+  all bands into one pass; the card's L2 serves the shifted re-reads of x.
 """
 
 from __future__ import annotations
@@ -73,7 +71,7 @@ def spmm_dia(m: DIA, X: jax.Array) -> jax.Array:
             shifted = jnp.concatenate([X[off:], pad(off)])
         else:
             shifted = jnp.concatenate([pad(-off), X[:off]])
-        Y = Y + m.bands[d][:, None] * shifted
+        Y = Y + m.bands[d].astype(Y.dtype)[:, None] * shifted
     return Y
 
 
@@ -82,7 +80,8 @@ def spmv_dia(m: DIA, x: jax.Array) -> jax.Array:
 
     Each shifted x is built with pad+slice (contiguous, no gather). The Python
     loop over the (static, few) offsets unrolls at trace time and XLA fuses the
-    whole thing into a single VPU pass over n.
+    whole thing into a single pass over n; narrow band storage
+    (:meth:`DIA.narrow`) is widened inside that pass.
     """
     n = m.shape[0]
     y = jnp.zeros(n, dtype=jnp.result_type(m.dtype, x.dtype))
@@ -94,5 +93,5 @@ def spmv_dia(m: DIA, x: jax.Array) -> jax.Array:
             shifted = jnp.concatenate([x[off:], jnp.zeros(off, dtype=x.dtype)])
         else:
             shifted = jnp.concatenate([jnp.zeros(-off, dtype=x.dtype), x[:off]])
-        y = y + m.bands[d] * shifted
+        y = y + m.bands[d].astype(y.dtype) * shifted
     return y

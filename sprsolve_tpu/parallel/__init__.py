@@ -2,8 +2,8 @@
 
 The reference has **no** distributed runtime (SURVEY.md §2: rayon threads and
 MKL's internal threading are the complete parallelism story).  This package is
-the TPU-native scaling layer BASELINE.md requires: the matrix is partitioned
-by row blocks across a 1-D ``jax.sharding.Mesh``, each chip owns the matching
+the scaling layer BASELINE.md requires: the matrix is partitioned by row
+blocks across a 1-D ``jax.sharding.Mesh``, each device owns the matching
 block of every solver vector, Krylov inner products become ``psum``
 collectives, and the SpMV obtains remote x entries via halo exchange
 (all-gather v1; neighbor ``ppermute`` overlapped with local compute for banded
@@ -24,14 +24,11 @@ from .eigen import (
     distributed_rational_filter_eigs,
     distributed_shift_invert_eigs,
 )
-from .pallas_dist import DistComplexPaddedDIA, DistPaddedDIA
 from .solve import distributed_solve, make_solver_specs
 
 __all__ = [
     "AllGatherELL",
     "HaloDIA",
-    "DistComplexPaddedDIA",
-    "DistPaddedDIA",
     "partition_csr",
     "partition_dia",
     "MPKDIA",

@@ -97,10 +97,12 @@ class AllGatherELL:
         all k columns (the distributed-LOBPCG workhorse; a per-column
         ``matvec`` loop would pay k gathers of the same x traffic)."""
         X_full = lax.all_gather(X_local, self.axis_name, axis=0, tiled=True)
-        # (rows, kk, k) gathered operand against (rows, kk) values — an MXU
-        # contraction over the ELL slot axis
+        # (rows, kk, k) gathered operand against (rows, kk) values — a
+        # contraction over the ELL slot axis; HIGHEST because a default-
+        # precision f32 einsum may run in TF32 (~3 decimal digits)
         return jnp.einsum(
-            "re,rek->rk", self.data, jnp.take(X_full, self.cols, axis=0)
+            "re,rek->rk", self.data, jnp.take(X_full, self.cols, axis=0),
+            precision=lax.Precision.HIGHEST,
         )
 
 

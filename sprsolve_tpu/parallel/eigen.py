@@ -440,11 +440,10 @@ def distributed_rational_filter_eigs(
         )
     cdt = jnp.complex64 if rdt == jnp.dtype(jnp.float32) else jnp.complex128
 
-    # mixed-precision inner refinement (same scheme as the single-chip
+    # mixed-precision inner refinement (same scheme as the single-device
     # driver, solvers/rational.py): a partitioned f64 copy serves the
     # straight-line true-residual corrections and the f64 quadrature
-    # accumulation — no f64 control flow, which TPU's x64 rewriter
-    # cannot compile
+    # accumulation — no f64 control flow
     A64_parts = None
     if inner_refine:
         if not jax.config.jax_enable_x64:

@@ -3,14 +3,14 @@ host↔global array movement.
 
 The reference has no distributed backend at all (SURVEY.md §2 "Distributed
 communication backend: absent"); SURVEY §5 maps that absence to first-class
-TPU-native scaffolding: ``jax.distributed`` initialization for multi-host
-runs, a row mesh laid out so that halo ``ppermute`` traffic between adjacent
-row blocks rides ICI (intra-host links) wherever possible and crosses DCN
-only at host boundaries, and helpers to build/collect globally-sharded
+scaffolding: ``jax.distributed`` initialization for multi-host runs, a row
+mesh laid out so that halo ``ppermute`` traffic between adjacent row blocks
+stays on intra-host links wherever possible and crosses hosts only at host
+boundaries, and helpers to build/collect globally-sharded
 arrays from per-process host data.
 
-On a real pod slice, ``initialize()`` is a thin wrapper over
-``jax.distributed.initialize`` (auto-detecting cluster parameters).  The
+On a real cluster, ``initialize()`` is a thin wrapper over
+``jax.distributed.initialize``.  The
 same code paths are exercised hermetically in CI by a 2-process × 4-device
 CPU cluster using the Gloo collectives backend
 (``tests/test_multihost.py``), the multi-process analog of the virtual
@@ -35,8 +35,9 @@ def initialize(
 ) -> None:
     """Join (or auto-detect) the multi-process cluster.
 
-    On TPU pods the three arguments are auto-detected from the environment
-    and may be omitted.  For hermetic CPU clusters (tests, local dev), pass
+    Where the cluster environment provides them the three arguments may be
+    omitted; a GPU host with no cluster manager needs all three (a
+    ``localhost:<port>`` coordinator).  For hermetic CPU clusters (tests, local dev), pass
     all three and ``cpu_devices_per_process`` — the CPU backend is switched
     to the Gloo collectives implementation, which supports cross-process
     collectives without hardware interconnect.

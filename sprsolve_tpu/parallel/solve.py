@@ -22,7 +22,6 @@ from .dist_operator import (
     AllGatherELL, HaloDIA, MPKDIA, auto_mesh, partition_csr, partition_dia,
     partition_dia_mpk,
 )
-from .pallas_dist import DistComplexPaddedDIA, DistPaddedDIA
 
 
 def make_solver_specs(A_parts, M_parts, axis_name: str):
@@ -78,8 +77,7 @@ def distributed_solve(
             partition_dia_mpk(A, n_dev, mpk_s, axis_name)
             if mpk_s else partition_dia(A, n_dev, axis_name)
         )
-    elif isinstance(A, (AllGatherELL, HaloDIA, MPKDIA, DistPaddedDIA,
-                    DistComplexPaddedDIA)):
+    elif isinstance(A, (AllGatherELL, HaloDIA, MPKDIA)):
         A_parts = A
     else:
         raise TypeError(f"cannot partition operator of type {type(A)}")
@@ -88,39 +86,22 @@ def distributed_solve(
     b = jnp.asarray(b)
     if x0 is None:
         x0 = jnp.zeros_like(b)
-    if isinstance(A_parts, (DistPaddedDIA, DistComplexPaddedDIA)):
-        # kernel 2-D layout: (D·r_local, LANES) row blocks
-        b = A_parts.pad_vec(b)
-        x0 = A_parts.pad_vec(x0)
-        n_pad = n  # unpadding handled via the operator below
-    else:
-        n_pad = A_parts.shape[0]
-        if n_pad != n:
-            # rhs may be (n,) or an (n, k) multi-rhs block (block_cg)
-            pad = jnp.zeros((n_pad - n,) + b.shape[1:], dtype=b.dtype)
-            b = jnp.concatenate([b, pad])
-            x0 = jnp.concatenate([x0, pad])
+    n_pad = A_parts.shape[0]
+    if n_pad != n:
+        # rhs may be (n,) or an (n, k) multi-rhs block (block_cg)
+        pad = jnp.zeros((n_pad - n,) + b.shape[1:], dtype=b.dtype)
+        b = jnp.concatenate([b, pad])
+        x0 = jnp.concatenate([x0, pad])
 
     M_parts = None
     if M is not None:
         from ..precond import ComplexDiagPrecond
 
         if isinstance(M, ComplexDiagPrecond):
-            # complex Jacobi planes shard with the rows.  2-D planes are
-            # already in the operator's global kernel layout (built via
-            # DistComplexPaddedDIA.jacobi_precond); flat (n,) planes (the
-            # natural host-side build from the matrix diagonal) are re-laid
-            # here — pad slots get the inert 1 + 0i reciprocal.
+            # complex Jacobi planes shard with the rows; pad slots get the
+            # inert 1 + 0i reciprocal
             ir, ii = M.inv_re, M.inv_im
-            if isinstance(A_parts, DistComplexPaddedDIA) and ir.ndim != 2:
-                total = A_parts.re.bands3.shape[1] * A_parts.re.lanes
-                ir = jnp.ones(total, ir.dtype).at[: A_parts.n].set(
-                    ir
-                ).reshape(-1, A_parts.re.lanes)
-                ii = jnp.zeros(total, ii.dtype).at[: A_parts.n].set(
-                    ii
-                ).reshape(-1, A_parts.re.lanes)
-            elif ir.shape[0] != n_pad and ir.ndim == 1:
+            if ir.shape[0] != n_pad:
                 ir = jnp.concatenate(
                     [ir, jnp.ones(n_pad - ir.shape[0], ir.dtype)]
                 )
@@ -130,14 +111,7 @@ def distributed_solve(
             M_parts = ComplexDiagPrecond(inv_re=ir, inv_im=ii)
         elif isinstance(M, DiagPrecond):
             di = M.diag_inv
-            if isinstance(A_parts, DistComplexPaddedDIA):
-                if di.ndim != 2:  # flat real diag → the 2-D kernel layout
-                    di = A_parts.re.pad_vec(di)
-                # (2-D = already distributed layout, e.g. abs_jacobi_precond)
-            elif isinstance(A_parts, DistPaddedDIA):
-                # zero-padded reciprocal keeps pad coordinates inert (0·0 = 0)
-                di = A_parts.pad_vec(di)
-            elif di.shape[0] != n_pad:
+            if di.shape[0] != n_pad:
                 di = jnp.concatenate(
                     [di, jnp.ones(n_pad - di.shape[0], dtype=di.dtype)]
                 )
@@ -192,8 +166,9 @@ def distributed_solve(
 
         args = (A_parts, b, x0, M_parts)
 
-    # check_vma=False: Pallas out_shapes inside the solver carry no
-    # varying-across-mesh annotation; the data flow is still fully sharded.
+    # check_vma=False: some solvers' while_loop carries (idrs; fgmres with
+    # an inner solve) fail the varying-across-mesh type check; the data flow
+    # is still fully sharded.
     sharded = jax.shard_map(
         run, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
     )
@@ -206,8 +181,6 @@ def distributed_solve(
     from .multihost import replicate
 
     x_pad = replicate(x_pad, mesh)
-    if isinstance(A_parts, (DistPaddedDIA, DistComplexPaddedDIA)):
-        return A_parts.unpad_vec(x_pad), info
     if n_pad != n:
         x_pad = x_pad[:n]
     return x_pad, info

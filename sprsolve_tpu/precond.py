@@ -51,11 +51,7 @@ jax.tree_util.register_dataclass(DiagPrecond, data_fields=("diag_inv",), meta_fi
 class ComplexDiagPrecond:
     """Jacobi preconditioner with a *complex* diagonal, stored as re/im planes.
 
-    The pytree leaves are real arrays, so this preconditioner can cross jit
-    boundaries on backends that reject complex device buffers (the same
-    constraint that motivates :class:`~sprsolve_tpu.ops.pallas_spmv.ComplexPaddedDIA`
-    and ``with_real_planes``); the complex multiply exists only inside the
-    compiled program.  Semantics match ``DiagPrecond`` with ``1/d`` complex
+    The complex multiply is formed in the apply.  Semantics match ``DiagPrecond`` with ``1/d`` complex
     (reference ``src/precond.rs:20-30`` with ``V = Complex``).
     """
 
@@ -98,15 +94,16 @@ jax.tree_util.register_dataclass(
 class ChebyshevPrecond:
     """Chebyshev polynomial preconditioner: M⁻¹ ≈ p_k(A) ≈ A⁻¹ on [λmin, λmax].
 
-    The most TPU-natural preconditioner beyond Jacobi: the apply is k SpMVs
-    and axpys with *no* sequential row dependencies or triangular solves —
-    it runs at full kernel speed through any operator (including the Pallas
-    paths) and distributes for free.  Requires SPD-ish A with a known (or
+    The most data-parallel preconditioner beyond Jacobi: the apply is k
+    SpMVs and axpys with *no* sequential row dependencies or triangular
+    solves — it runs at SpMV speed through any operator and distributes for
+    free.  Requires SPD-ish A with a known (or
     estimated) spectrum interval; classical three-term recurrence.
 
     Beyond the reference's feature set (it only ships DiagPrecond) — included
     because polynomial preconditioning is the idiomatic accelerator answer to
-    the triangular-solve preconditioners TPUs can't run efficiently.
+    the triangular-solve preconditioners that serialize on parallel
+    hardware.
     """
 
     A: object          # LinearOperator
@@ -197,7 +194,7 @@ def estimate_spectral_bounds(A, x_example=None, *, m: int = 30, seed: int = 0,
     Chebyshev bounds must *bracket* the spectrum to contract).
 
     ``x_example`` fixes the start-vector shape/dtype for operators with an
-    internal layout (PaddedDIA & co.: pass ``op.pad_vec(v)``); by default a
+    internal layout (``Reordered``: pass ``op.pad_vec(v)``); by default a
     seeded unit-normal flat vector of size ``A.shape[0]`` is used.
     """
     import numpy as np
@@ -248,11 +245,11 @@ def estimate_spectral_bounds(A, x_example=None, *, m: int = 30, seed: int = 0,
 class BlockJacobiPrecond:
     """Block-Jacobi preconditioner: M⁻¹ = blockdiag(A₁₁⁻¹, …, A_kk⁻¹).
 
-    The MXU-shaped generalization of :class:`DiagPrecond` (reference
+    The dense-block generalization of :class:`DiagPrecond` (reference
     ``src/precond.rs`` stores ``1/diag``; here each dense ``bs×bs`` diagonal
     block is inverted once on the host).  The apply is a single batched
     ``(nb, bs, bs) × (nb, bs)`` contraction — exactly the regular, large,
-    batched matmul shape the systolic array wants, with no sequential row
+    batched matmul shape accelerators run well, with no sequential row
     dependencies — so it runs at full speed through jit/vmap/shard_map.
 
     If A is SPD/Hermitian every diagonal block is too, hence M⁻¹ is HPD and
@@ -420,10 +417,7 @@ class ILU0Precond:
         """Factor a host-side CSR and build the apply operators.
 
         ``layout_kwargs`` are forwarded to :func:`~sprsolve_tpu.ops.optimize`
-        for the triangular parts (default: XLA DIA/BSR layouts;
-        ``prefer_pallas`` is off because the factors run inside the
-        preconditioner apply where the padded-layout protocol of the Pallas
-        operators does not compose).
+        for the triangular parts.
         """
         import numpy as np
 
@@ -441,7 +435,6 @@ class ILU0Precond:
                 f"ILU(0): zero pivot at row {e.args[0]}"
             ) from None
         lo, up, diag = _split_factored(n, indptr, indices, factored)
-        layout_kwargs.setdefault("prefer_pallas", False)
         dtype = values.dtype
         return ILU0Precond(
             L_s=_operator_of(n, lo, dtype, layout_kwargs),
@@ -518,7 +511,6 @@ class IC0Precond:
         np.add.at(tip, tr_rows[tro] + 1, 1)
         np.cumsum(tip, out=tip)
         up = (tip, tr_cols[tro].astype(np.int32), tr_vals[tro])
-        layout_kwargs.setdefault("prefer_pallas", False)
         dtype = values.dtype
         rdt = np.real(diag).dtype
         return IC0Precond(
@@ -546,14 +538,14 @@ jax.tree_util.register_dataclass(
 
 @dataclasses.dataclass(frozen=True)
 class RelayedPrecond:
-    """Adapts a flat-layout preconditioner to a padded-layout operator.
+    """Adapts a flat-layout preconditioner to an operator's own layout.
 
-    Operators exposing ``pad_vec``/``unpad_vec`` (PaddedDIA & co.) run their
-    solves in an internal 2-D layout; a preconditioner built in the natural
-    (n,) layout is applied by round-tripping through that layout.  pad/unpad
-    are cheap jnp reshapes relative to the apply itself.  ``DiagPrecond`` has
-    a faster dedicated path (``relay_diag_precond``, a one-time diagonal
-    re-lay); this wrapper serves every other preconditioner type.
+    Operators exposing ``pad_vec``/``unpad_vec`` (``Reordered``) run their
+    solves in an internal (permuted) layout; a preconditioner built in the
+    natural (n,) layout is applied by round-tripping through that layout.
+    ``DiagPrecond`` has a faster dedicated path (``relay_diag_precond``, a
+    one-time diagonal re-lay); this wrapper serves every other
+    preconditioner type.
     """
 
     inner: object
@@ -583,37 +575,15 @@ def real_abs_jacobi(op) -> "DiagPrecond":
     shape for the Saunders process of preconditioned CS-MINRES (real
     symmetric positive; Freund's standard choice for complex-symmetric
     systems).  One dispatcher for every operator class (Reordered wrappers
-    recurse into the permuted inner operator; two-plane padded operators
-    build from their plane diagonals; CSR-planes fallbacks from the plane
-    CSR diagonals; anything else from ``diagonal()``).  Zero diagonals are
-    forced to 1 (inert)."""
+    recurse into the permuted inner operator; CSR-planes fallbacks build
+    from the plane CSR diagonals; anything else from ``diagonal()``).  Zero
+    diagonals are forced to 1 (inert)."""
     import numpy as np
 
     # Reordered wrapper: solves run in permuted layout — build from the
     # inner operator so the diagonal lands in solve space
     if hasattr(op, "inner") and hasattr(op, "perm"):
         return real_abs_jacobi(op.inner)
-    if hasattr(op, "abs_jacobi_precond"):
-        return op.abs_jacobi_precond()
-    if hasattr(op, "diagonal_global"):
-        # real distributed padded operator (DistPaddedDIA): global 2-D
-        # diagonal layout (the complex variant is served by its own
-        # abs_jacobi_precond above)
-        d = jnp.abs(op.diagonal_global())
-        safe = jnp.where(d == 0, jnp.ones((), d.dtype), d)
-        return DiagPrecond(diag_inv=jnp.ones((), d.dtype) / safe)
-    if hasattr(op, "diagonal_padded"):
-        if hasattr(op, "re"):
-            # two-plane padded operator: |d| from the re/im planes (no
-            # complex array outside a compiled program)
-            dr = op.re.diagonal_padded()
-            di = op.im.diagonal_padded()
-            d = jnp.sqrt(dr * dr + di * di)
-        else:
-            # real padded operator (PaddedDIA): |d| of the padded diagonal
-            d = jnp.abs(op.diagonal_padded())
-        safe = jnp.where(d == 0, jnp.ones((), d.dtype), d)
-        return DiagPrecond(diag_inv=jnp.ones((), d.dtype) / safe)
     if hasattr(op, "re") and hasattr(op.re, "diagonal"):
         # CSR-planes fallback operator (_PlanesComplexOp and kin)
         dr = np.asarray(op.re.diagonal())

@@ -9,8 +9,8 @@ invalid input).  Tolerance semantics follow scipy ≥ 1.12:
 ``‖r‖ ≤ max(rtol·‖b‖, atol)``.
 
 Under the hood everything routes through :func:`sprsolve_tpu.solve`, so a
-scipy-shaped call still gets the layout optimizer (Pallas DIA / BSR / RCM)
-and runs the same TPU execution paths as the native API.  This is an
+scipy-shaped call still gets the layout optimizer (DIA / BSR / RCM)
+and runs the same execution paths as the native API.  This is an
 interop veneer — new code should prefer :func:`sprsolve_tpu.solve` or the
 functional solvers, which return the richer :class:`SolveInfo`.
 """
@@ -244,8 +244,8 @@ def eigsh(A, k: int = 6, M=None, sigma=None, which: str = "LM", v0=None,
       a prebuilt ≈A⁻¹ operator, or ``None``.  At scale this is the
       difference between converging and not — the smallest grid-operator
       eigenvalues cluster at O(h²) and unpreconditioned LOBPCG is
-      gap-limited (measured: 1M-row Poisson + multigrid M converges in 21
-      iterations where unpreconditioned stalls; BENCH_NOTES "Eigen").
+      gap-limited (a multigrid M restores convergence where
+      unpreconditioned LOBPCG stalls).
     """
     if M is not None or ncv is not None or mode != "normal":
         raise NotImplementedError("eigsh M/ncv/mode are not supported")

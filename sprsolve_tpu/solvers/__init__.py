@@ -15,7 +15,6 @@ from .lobpcg import lobpcg
 from .lsqr import lsqr
 from .minres import minres
 from .tfqmr import tfqmr
-from .planes import with_real_planes
 from .refine import refine, refine_solve
 from .cgs import cgs
 from .cocg import cocg
@@ -47,7 +46,6 @@ __all__ = [
     "lobpcg",
     "lsqr",
     "minres",
-    "with_real_planes",
     "refine",
     "refine_solve",
     "cgs",

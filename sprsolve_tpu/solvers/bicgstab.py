@@ -1,6 +1,6 @@
 """BiCGStab for general (non-symmetric, possibly indefinite) systems.
 
-TPU-native re-design of the reference solver (``src/bicg_stab.rs``): the
+Re-design of the reference solver (``src/bicg_stab.rs``): the
 preallocated 7n workspace becomes the ``lax.while_loop`` carry pytree (with
 buffer donation there is no per-iteration allocation), early returns become a
 status code in the carry, and the rare branches are replicated exactly so
@@ -175,28 +175,14 @@ def bicgstab(
             # reference checks at the top of each iteration,
             # src/bicg_stab.rs:123-126 — checking the carried ‖r‖ before
             # running the body is the same sequence).  Keeping it out of the
-            # body avoids a vector-carrying lax.cond per iteration, which
-            # measured ~40% of BiCGStab's loop cost.
+            # body avoids a vector-carrying lax.cond per iteration.
             #
-            # The ρ-breakdown restart has TWO equivalent compilations, chosen
-            # statically per operator class (identical arithmetic and
-            # iteration counts either way — both pass the parity goldens):
-            #
-            # - operators with fused w-dot kernels (Pallas paths): the
-            #   restart predicate exits an INNER while_loop and an outer
-            #   loop performs the rare restart.  A vector-carrying lax.cond
-            #   in the body forces 4 async full-vector copies per iteration
-            #   in the compiled HLO; nesting removes them — measured +17%
-            #   at 10M rows (309 vs 371 ms), neutral at 1M where XLA pins
-            #   the working set in VMEM.
-            # - pure-XLA operators (DIA/CSR/BSR fusion-soup matvecs): the
-            #   per-iteration lax.cond fuses cleanly, and the nested
-            #   structure measured 30% SLOWER (129 vs 94-100 µs/iter on the
-            #   XLA-DIA path, A/B on chip) — keep the single loop with the
-            #   in-body cond.
-            nested_restart = bool(
-                getattr(A, "_prefers_nested_restart", False)
-            )
+            # The ρ-breakdown restart predicate exits an INNER while_loop
+            # and an outer loop performs the rare restart.  A vector-carrying
+            # lax.cond in the body would force four full-vector copies per
+            # iteration (MemcpyD2D in the trace): on an H100 (400 W limit)
+            # at 10M rows the nested form measured 607 vs 735 µs/iter with
+            # f32 DIA bands (PERF.md).
 
             def cond_outer(s_):
                 return (
@@ -211,10 +197,9 @@ def bicgstab(
                 return jnp.abs(s_.rho_next) < s_.r0_norm_tol
 
             def restart_values(x):
-                # the ρ-breakdown restart recompute (src/bicg_stab.rs:131-145)
-                # shared verbatim by BOTH loop compilations so they can never
-                # diverge: r and r0 reset to A·x − b, ρ to ‖r‖², the restart
-                # tolerance re-derived
+                # the ρ-breakdown restart recompute (src/bicg_stab.rs:131-145):
+                # r and r0 reset to A·x − b, ρ to ‖r‖², the restart tolerance
+                # re-derived
                 r_r = axpy(-jnp.ones((), T), b, A.matvec(x))
                 rn = norm2(r_r, axis_name)
                 rho_r = (rn * rn).astype(T)
@@ -236,23 +221,8 @@ def bicgstab(
                     # ρ = conj(r0)·r was computed at the previous tail, fused
                     # with the ‖r‖ pass (identical value, one fewer pass here)
                     rho = s_.rho_next
-
-                    if nested_restart:
-                        # restart handled by the outer loop
-                        r_, r0_, r0_norm_tol = s_.r, s_.r0, s_.r0_norm_tol
-                    else:
-                        # in-body restart, carrying only the 4-tuple the
-                        # branch touches (shared recompute: restart_values)
-                        def restart(op):
-                            r_r, rho_r, tol_r = restart_values(s_.x)
-                            return rho_r, r_r, r_r, tol_r
-
-                        rho, r_, r0_, r0_norm_tol = lax.cond(
-                            jnp.abs(rho) < s_.r0_norm_tol,
-                            restart,
-                            lambda op: op,
-                            (rho, s_.r, s_.r0, s_.r0_norm_tol),
-                        )
+                    # restart handled by the outer loop
+                    r_, r0_, r0_norm_tol = s_.r, s_.r0, s_.r0_norm_tol
 
                     beta = (rho / rho_old) * (s_.alpha / s_.w)
                     # p = r + β·(p − ω·v), MKL-axpby form (src/bicg_stab.rs:153-156)
@@ -318,10 +288,7 @@ def bicgstab(
                 s_ = lax.cond(restart_needed(s_), restart, lambda s: s, s_)
                 return lax.while_loop(cond_inner, body_fn, s_)
 
-            if nested_restart:
-                final = lax.while_loop(cond_outer, outer_body, st)
-            else:
-                final = lax.while_loop(cond_outer, body_fn, st)
+            final = lax.while_loop(cond_outer, outer_body, st)
 
             # classify the exit: converged (‖r‖ ≤ tol2, iters = its at the
             # failed check — identical to the reference's top-of-loop return,

@@ -9,7 +9,7 @@ barriers over 2ℓ SpMVs instead of 2 — the s-step/communication-avoiding
 direction named in ROADMAP #2, realized here in the variant with a
 published convergence story rather than an ad-hoc re-association.
 
-TPU mapping: ℓ is a *static* Python int, so the intra-cycle j/i loops
+Mapping: ℓ is a *static* Python int, so the intra-cycle j/i loops
 unroll at trace time into straight-line XLA; only the cycle loop is a
 ``lax.while_loop``.  Only (x, r₀, u₀, r̃₀) persist across cycles — the
 higher-index Krylov vectors are cycle-local temporaries, so the carry stays

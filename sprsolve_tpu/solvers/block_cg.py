@@ -1,14 +1,14 @@
 """Block (multi-RHS) solvers: block CG and a vmap batching adapter.
 
 No reference counterpart (the reference solves one rhs at a time,
-``src/bicg_stab.rs:41``); added because multiple right-hand sides are where
-the TPU's balance point moves decisively in a sparse solver's favor:
+``src/bicg_stab.rs:41``); added because multiple right-hand sides move a
+memory-bound sparse solver's balance point decisively in its favor:
 
 - **SpMM instead of SpMV**: the matrix (the dominant HBM traffic) is read
   once per iteration for all k right-hand sides, so arithmetic intensity
   grows ~linearly in k until the x/y traffic catches up.
 - **Gram reductions instead of dots**: every inner product of classical CG
-  becomes a (k, n)·(n, k) matmul — MXU work — and the scalar α/β become
+  becomes a (k, n)·(n, k) matmul and the scalar α/β become
   k×k triangular solves, negligible for the k ≲ 64 this is meant for.
 - **Shared Krylov information**: block CG (O'Leary 1980) searches the sum
   of the k Krylov spaces, so ill-conditioned systems converge in *fewer*
@@ -106,12 +106,13 @@ def block_cg(
             s = lax.psum(s, axis_name)
         return jnp.sqrt(s).astype(rdt)
 
-    # HIGHEST precision: the MXU's default bf16 inputs put ~1e-2 relative
-    # error in million-row Gram/update matmuls (same fix as lobpcg/gmres)
+    # HIGHEST precision: a default-precision f32 matmul may run in TF32,
+    # ~1e-2 relative error in million-row Gram/update matmuls (same fix as
+    # lobpcg/gmres)
     _hp = jax.lax.Precision.HIGHEST
 
     def _gram(U, V):
-        """(k, k) = Uᴴ·V — one MXU matmul (+ psum when row-partitioned)."""
+        """(k, k) = Uᴴ·V — one matmul (+ psum when row-partitioned)."""
         G = jnp.matmul(jnp.conj(U.T), V, precision=_hp)
         if axis_name is not None:
             G = lax.psum(G, axis_name)

@@ -26,8 +26,8 @@ BiCGStab steps as scalar coefficient recurrences against the replicated
     b_{j+1} = b_s − ω·w_t
     β     = (ρ_{j+1}/ρ_j)(α/ω) ;  a_{j+1} = b_{j+1} + β(a_j − ω·w_v)
 
-and reconstruct x/r/p with three local (m × 4s+1) GEMVs — tall-skinny MXU
-shapes.  On a banded matrix-powers operator
+and reconstruct x/r/p with three local (m × 4s+1) GEMVs — tall-skinny
+matmuls.  On a banded matrix-powers operator
 (:class:`~sprsolve_tpu.parallel.dist_operator.MPKDIA` with depth ≥ 2s) the
 whole basis needs ONE depth-2s·h halo exchange, so a block of s BiCGStab
 iterations costs {1 all-reduce, 2 ppermutes} vs plain BiCGStab's
@@ -64,11 +64,10 @@ basis when ``bounds`` are given (Gershgorin is free:
 the real-interval Chebyshev basis still conditions on the field-of-values
 projection onto the real axis, which the convection-diffusion tests cover.
 
-Single-chip cost (measured, BENCH_NOTES "s-step family"): the basis build
-applies A to a 2-column block 2s times per s iterations — ~2× plain
-BiCGStab's SpMV work — and on one chip that is pure cost: 1,062 µs/iter
-vs plain's 583 at 1M rows.  Reach for this solver only across a mesh
-where reduction-round latency dominates; on a single chip prefer
+Single-device cost: the basis build applies A to a 2-column block 2s times
+per s iterations — ~2× plain BiCGStab's SpMV work — and on one device that
+is pure cost.  Reach for this solver only across a mesh where
+reduction-round latency dominates; on a single device prefer
 :func:`~sprsolve_tpu.solvers.bicgstabl.bicgstabl`.
 """
 

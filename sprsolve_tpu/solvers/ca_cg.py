@@ -1,7 +1,7 @@
 """s-step (communication-avoiding) Conjugate Gradients.
 
 Not in the reference (its SPD solver is MINRES, ``src/minres.rs``); this is
-the mesh-latency end of the CG family this package builds out for the TPU:
+the mesh-latency end of the CG family this package builds out:
 
 - :func:`~sprsolve_tpu.solvers.cg.cg` — 2 dependent all-reduce rounds/iter,
 - :func:`~sprsolve_tpu.solvers.cg.cg_single_sync` — 1 fused round/iter
@@ -12,7 +12,7 @@ the mesh-latency end of the CG family this package builds out for the TPU:
   (2s+1)² Gram matrix G = VᴴV with ONE ``psum``, then run s exact-CG steps
   as *scalar* coefficient recurrences against replicated G (A·(V·a) = V·B·a
   with B the static basis-change matrix), and reconstruct x/r/p with three
-  local (m × 2s+1) GEMVs — tall-skinny MXU shapes.
+  local (m × 2s+1) GEMVs — tall-skinny matmuls.
 
 On a banded operator with matrix-powers support
 (:class:`~sprsolve_tpu.parallel.dist_operator.MPKDIA`) the basis itself
@@ -21,11 +21,10 @@ of s plain SpMVs, so a whole block of s CG iterations costs 2 ppermutes +
 1 all-reduce — vs s·(2 ppermutes + 2 all-reduces) for plain CG.  Certified
 from compiled HLO in ``tests/test_ca_cg.py``.
 
-Single-chip cost (measured, BENCH_NOTES "s-step family"): the basis build
-applies A to the stacked [p, r] 2-column block s times per s iterations —
-~2× plain CG's SpMV work — and on one chip that is pure cost (556 µs/iter
-vs plain cg's 328 at 1M rows).  This solver's regime is a mesh where
-reduction/halo latency dominates; on a single chip prefer :func:`cg`.
+Single-device cost: the basis build applies A to the stacked [p, r]
+2-column block s times per s iterations — ~2× plain CG's SpMV work — and
+on one device that is pure cost.  This solver's regime is a mesh where
+reduction/halo latency dominates; on a single device prefer :func:`cg`.
 
 Basis conditioning is the classical CA trade: the monomial basis ρ_j = λʲ
 has condition growing like κ(A)^s, so the default is the **Chebyshev basis**

@@ -11,8 +11,7 @@ operator's fused forms, ``axis_name`` makes it distributed-collective.
 The α-dot is conj(p)·(A·p) — exactly the operator's fused ``matvec_dot``
 (the reference's ``mul_vec_dot`` / MKL dotmv shape, ``src/mat.rs:19-22``),
 so the per-iteration structure is one fused SpMV pass plus one (r·z, ‖r‖)
-tail pass, the same single-reduction-barrier shape that makes MINRES fast
-on the TPU.
+tail pass, the same single-reduction-barrier shape as MINRES.
 
 Breakdown semantics: pᴴAp ≤ 0 (operator not positive definite on the
 Krylov space) terminates with ``Status.BREAKDOWN`` and the last iterate,

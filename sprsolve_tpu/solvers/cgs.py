@@ -16,7 +16,7 @@ Breakdown: ρ = r̃ᴴr or σ = r̃ᴴv can vanish without convergence; both are
 predicated ``Status.BREAKDOWN`` exits against the same ε²-scaled
 thresholds BiCGStab uses for ρ (``src/bicg_stab.rs:84-85``).
 
-TPU shape: one ``lax.while_loop`` with the state pytree as workspace —
+Shape: one ``lax.while_loop`` with the state pytree as workspace —
 identical discipline to :func:`~sprsolve_tpu.solvers.bicgstab`.
 """
 

@@ -53,8 +53,8 @@ def check_shapes(A, b, x0, axis_name=None):
     from ..errors import IncompatibleMatrixFormat
 
     n = b.shape[0]
-    # flat vectors are checked against the operator; 2-D kernel-layout vectors
-    # (e.g. PaddedDIA's padded (rows, lanes) layout) only against each other.
+    # flat vectors are checked against the operator; 2-D multi-RHS blocks
+    # only against each other.
     if b.ndim == 1 and hasattr(A, "shape") and A.shape is not None:
         n_global = n if axis_name is None else n * lax.axis_size(axis_name)
         if A.shape[1] != n_global:

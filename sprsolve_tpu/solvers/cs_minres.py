@@ -1,7 +1,7 @@
 """CS-MINRES: MINRES for complex-*symmetric* (Aᵀ = A, non-Hermitian) systems
 via the Saunders process.
 
-TPU-native re-design of ``src/cs_minres.rs``.  Differences from plain MINRES,
+Re-design of ``src/cs_minres.rs``.  Differences from plain MINRES,
 replicated exactly (``src/cs_minres.rs:97-146``):
 
 - the Krylov step multiplies A·conj(q_k) (``:99-102``),

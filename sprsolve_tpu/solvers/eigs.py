@@ -5,10 +5,10 @@ Beyond the reference (which has no eigensolver surface at all) and beyond
 plain LOBPCG (which reaches only the spectrum's ends): eigenvalues of
 (A − σI)⁻¹ are μ = 1/(λ − σ), so the λ *nearest σ* become the *extreme* μ —
 reachable by LOBPCG — at the price of an inner linear solve per operator
-application.  The composition is fully TPU-native:
+application.  The composition:
 
 - the shifted operator is :class:`~sprsolve_tpu.ops.operator.ShiftedOperator`
-  (the σ-axpy fused into the SpMV output pass, padded kernel layouts
+  (the σ-axpy fused into the SpMV output pass, reordered layouts
   preserved),
 - each inverse application is a MINRES inner solve (the right Krylov method
   for the symmetric *indefinite* A − σI) running as a ``lax.while_loop``
@@ -77,7 +77,7 @@ class InvertedOperator:
             # flexible inner: M may be ANY operator (multigrid on the
             # indefinite shifted system, an inner Krylov sweep, ...) —
             # MINRES's SPD-M restriction is the reason no available
-            # preconditioner helps it on A − σI (see BENCH_NOTES "Eigen")
+            # preconditioner helps it on A − σI
             from .fgmres import fgmres
 
             solver = fgmres
@@ -179,8 +179,8 @@ def shift_invert_eigs(
 
         op = _optimize(op)
     if hasattr(op, "pad_vec"):
-        # LOBPCG's (n, 3k) block algebra is flat; round-trip padded kernel
-        # layouts per apply (reshapes — cheap against the inner solves)
+        # LOBPCG's (n, 3k) block algebra is flat; round-trip reordered
+        # layouts per apply (permutations — cheap against the inner solves)
         from ..multigrid import FlatViewOperator
 
         op = FlatViewOperator(op=op)
@@ -190,8 +190,6 @@ def shift_invert_eigs(
         inner = getattr(op, "op", op)
         if hasattr(inner, "diagonal"):
             dt = jnp.asarray(inner.diagonal()).dtype
-        elif hasattr(inner, "diagonal_padded"):
-            dt = jnp.asarray(inner.diagonal_padded()).dtype
         elif X0 is not None:
             dt = jnp.asarray(X0).dtype
         else:
@@ -248,7 +246,7 @@ def _select_nearest(lam_all, rel_all, Xnp, sigma, side, k, tol, total_its):
     CONVERGED is gated on the DIRECTLY MEASURED residuals of the returned
     pairs on the original A — not on the inner LOBPCG passes' μ-space
     status: the μ-iteration routinely hits its budget while the Rayleigh
-    quotients on A are already within tol (observed on chip at 262k), and
+    quotients on A are already within tol, and
     conversely a converged μ-pass with sloppy inner solves could still
     return bad pairs. The measurement is the contract.
     """

@@ -12,16 +12,14 @@ cycles), whose action is a nonlinear function of its input. That inner-outer
 pattern is the standard way to use a strong-but-inexact preconditioner, and
 is exposed here through :class:`sprsolve_tpu.precond.InnerSolvePrecond`.
 
-TPU-native design (same skeleton as ``gmres.py``, which documents the CGS2 /
+Design (same skeleton as ``gmres.py``, which documents the CGS2 /
 Givens / restart choices):
 
 - One extra ``(m, size)`` carry block Z — the only state delta vs GMRES.
   Per step, right-preconditioned GMRES already pays the one M apply;
-  FGMRES *keeps* the result instead of re-applying M once at cycle end.
-  Measured on chip (1M-row convection-diffusion, BENCH_NOTES
-  "FGMRES / inner-outer"): ~12% wall overhead vs GMRES at equal
-  iterations — the Z-block store traffic, not extra M applies.
-- The x-update is ``y·Z`` — one (m,)×(m, size) matmul on the MXU, mirroring
+  FGMRES *keeps* the result instead of re-applying M once at cycle end;
+  its extra cost is the Z-block store traffic, not extra M applies.
+- The x-update is ``y·Z`` — one (m,)×(m, size) matmul, mirroring
   the ``y·V`` reconstruction.
 - Everything runs inside ``lax.while_loop``s; an inner-solver M compiles to
   a nested ``while_loop`` in the same XLA program (no host round-trips).
@@ -109,7 +107,7 @@ def fgmres(
     size = b.size
     arange_m1 = jnp.arange(m + 1)
 
-    # MXU basis matmuls at HIGHEST — same reasoning as gmres.py/lobpcg.py
+    # basis matmuls at HIGHEST — same reasoning as gmres.py/lobpcg.py
     _hp = jax.lax.Precision.HIGHEST
 
     def _basis_dots(V, w):

@@ -1,17 +1,18 @@
 """Gauss-Seidel stationary solver.
 
-TPU-native re-design of ``src/gauss_seidel.rs``.  True Gauss-Seidel is
+Re-design of ``src/gauss_seidel.rs``.  True Gauss-Seidel is
 inherently sequential over rows — x[i] reads x[j<i] already updated in the
 same sweep (``src/gauss_seidel.rs:111-125``) — which fundamentally conflicts
 with data-parallel hardware.  This module therefore provides two sweeps:
 
 - :func:`gauss_seidel` — the *exact* sequential sweep (``lax.fori_loop`` over
   rows on an ELL layout).  Bit-faithful to the reference semantics, used for
-  fidelity tests and small systems.  Slow on TPU by construction; documented
+  fidelity tests and small systems.  Slow on parallel hardware by
+  construction; documented
   deviation: none.
 - :func:`gauss_seidel_redblack` (see ``redblack.py``) — multicolor
   reformulation whose sweeps are fully parallel; different (but classical)
-  convergence behavior, intended as the practical TPU smoother /
+  convergence behavior, intended as the practical parallel smoother /
   preconditioner.
 
 Semantics replicated exactly for the sequential path:

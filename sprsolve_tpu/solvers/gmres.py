@@ -6,12 +6,12 @@ standard robust companion to BiCGStab in every sparse library
 (cf. ``scipy.sparse.linalg.gmres``) and is the method of choice when
 BiCGStab's short recurrences break down.
 
-TPU-native design choices (not a translation of any host GMRES):
+Design choices (not a translation of any host GMRES):
 
 - The Arnoldi basis lives as a dense ``(m+1, size)`` matrix in the loop
   carry, and orthogonalization is **CGS2** (classical Gram-Schmidt applied
   twice): each pass is one masked ``V̄·w`` matvec plus one rank-1-style
-  correction ``w − h·V`` — two large matmuls that XLA maps onto the MXU.
+  correction ``w − h·V`` — two large matmuls instead of m dot kernels.
   Sequential modified Gram-Schmidt would serialize m dot-kernels per step;
   CGS2 has the same O(ε) loss of orthogonality bound in practice and is the
   standard reorthogonalized choice for vector hardware.
@@ -105,13 +105,13 @@ def gmres(
     size = b.size             # local flat length (per shard under shard_map)
     arange_m1 = jnp.arange(m + 1)
 
-    # MXU default precision is bf16 inputs: at 1M-row scale that costs
-    # ~1e-2 relative error in the Arnoldi projections and CGS2 loses
+    # a default-precision f32 matmul may run in TF32: at 1M-row scale that
+    # costs ~1e-2 relative error in the Arnoldi projections and CGS2 loses
     # orthogonality — all basis matmuls run at HIGHEST (same fix as lobpcg)
     _hp = jax.lax.Precision.HIGHEST
 
     def _basis_dots(V, w):
-        """h[i] = conj(V[i])·w for the whole basis in one MXU matmul."""
+        """h[i] = conj(V[i])·w for the whole basis in one matmul."""
         h = jnp.matmul(jnp.conj(V), w, precision=_hp)
         if axis_name is not None:
             h = lax.psum(h, axis_name)
@@ -135,7 +135,7 @@ def gmres(
                 w = A.matvec(z).reshape(size)
 
                 # CGS2: two masked project-and-subtract passes, each a pair
-                # of (m+1, size) matmuls → MXU work, no sequential dots
+                # of (m+1, size) matmuls, no sequential dots
                 mask = (arange_m1 <= j).astype(rdt)
                 h1 = mask * _basis_dots(s.V, w)
                 w = w - jnp.matmul(h1, s.V, precision=_hp)

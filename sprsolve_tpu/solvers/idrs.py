@@ -8,8 +8,8 @@ provably shrinks the residual into a space of dimension reduced by s, often
 converging in fewer total SpMVs than BiCGStab (= IDR(1) up to rounding) on
 hard nonsymmetric problems, without GMRES's growing basis.
 
-TPU shape: the shadow space P is a *fixed* (n, s) random block, so the
-per-step projections Pᴴ·v are (s, n)×(n,) matvecs — tall-skinny MXU work —
+Shape: the shadow space P is a *fixed* (n, s) random block, so the
+per-step projections Pᴴ·v are (s, n)×(n,) matvecs — tall-skinny matmuls —
 and all per-cycle algebra is over static-size (s,)/(s, s) arrays. The k
 loop inside a cycle is unrolled (s is a static Python int, default 4);
 cycles run under ``lax.while_loop`` with the usual status-code carry.
@@ -17,11 +17,10 @@ cycles run under ``lax.while_loop`` with the usual status-code carry.
 Preconditioning is right-style as in the reference TOMS algorithm: every
 new direction v is replaced by M⁻¹v before multiplication by A.
 
-Cost model (measured on v5e at 1M rows): each step streams the (n, s)
-G/U/P blocks in addition to the SpMV, so the per-matvec wall cost is
-several times BiCGStab's — IDR(s) pays off when *matvec count* is the
+Cost model: each step streams the (n, s) G/U/P blocks in addition to the
+SpMV, so the per-matvec memory traffic is several times BiCGStab's — IDR(s) pays off when *matvec count* is the
 bottleneck (hard nonsymmetric spectra, expensive operators), not on easy
-stencils where the fused BiCGStab path is already at memory speed.
+stencils where BiCGStab's few vector passes already dominate.
 """
 
 from __future__ import annotations
@@ -42,7 +41,7 @@ def _est_nnz_per_row(A):
     """Best-effort nnz/row of an operator (None when unknowable)."""
     try:
         n = A.shape[0]
-        if hasattr(A, "offsets"):          # DIA / PaddedDIA / distributed DIA
+        if hasattr(A, "offsets"):          # DIA / distributed DIA
             return len(A.offsets)
         if hasattr(A, "nnz"):              # CSR/COO/CSC
             return A.nnz / max(n, 1)
@@ -56,11 +55,10 @@ def _est_nnz_per_row(A):
 
 
 def _warn_if_shadow_traffic_dominates(A, s: int) -> None:
-    """Guidance cutoff (BENCH_NOTES "IDR(s)"): every IDR step streams the
-    (n, s) shadow/direction blocks (P, G, U ≈ 3·s vector streams) on top of
-    the SpMV (≈ nnz/row + 2 streams).  On cheap stencils that makes the
-    per-matvec wall cost several × BiCGStab's (measured 420 µs vs 81 µs at
-    1M rows, s = 4) — IDR(s) only pays off when *matvec count* is the
+    """Guidance cutoff: every IDR step streams the (n, s) shadow/direction
+    blocks (P, G, U ≈ 3·s vector streams) on top of the SpMV (≈ nnz/row + 2
+    streams).  On cheap stencils that makes the per-matvec memory traffic
+    several × BiCGStab's — IDR(s) only pays off when *matvec count* is the
     bottleneck.  Warn when the shadow traffic dominates the operator's."""
     import warnings
 
@@ -138,9 +136,12 @@ def idrs(
         ).astype(T)
     P, _ = jnp.linalg.qr(P)
     PH = P.conj().T  # (s, n)
+    # HIGHEST: a default-precision f32 matmul may run in TF32 (~3 decimal
+    # digits), which would corrupt the shadow-space projections
+    _hp = lax.Precision.HIGHEST
 
     def pdot(v):
-        h = PH @ v.reshape(-1)
+        h = jnp.matmul(PH, v.reshape(-1), precision=_hp)
         if axis_name is not None:
             h = lax.psum(h, axis_name)
         return h
@@ -184,9 +185,9 @@ def idrs(
                     den = jnp.where(jnp.abs(den) > tiny, den, jnp.ones((), T))
                     c = c.at[i].set(acc / den)
                 # v = r − Σ_{i≥k} c_i G_i ; preimage u built the same way
-                v = r - (G @ c).reshape(vshape)
+                v = r - jnp.matmul(G, c, precision=_hp).reshape(vshape)
                 v = M.matvec(v)
-                u = (U @ c).reshape(vshape) + om * v
+                u = jnp.matmul(U, c, precision=_hp).reshape(vshape) + om * v
                 g = A.matvec(u)
                 # biorthogonalize g against the already-updated P columns:
                 # one full projection, then updated incrementally

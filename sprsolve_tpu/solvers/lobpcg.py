@@ -3,10 +3,10 @@
 Not present in the reference (its surface is linear *solvers*,
 ``src/lib.rs:15-21``); added for framework completeness — LOBPCG is the
 standard sparse-eigenvalue companion of a Krylov-solver library (cf.
-``scipy.sparse.linalg.lobpcg``), and it is unusually TPU-friendly: per
+``scipy.sparse.linalg.lobpcg``), and it maps well onto an accelerator: per
 iteration the work is one operator SpMM on an (n, 3k) tall-skinny block, a
-QR and a 3k×3k Hermitian eigendecomposition — all dense MXU shapes — with
-no sequential scalar recurrences at all.
+QR and a 3k×3k Hermitian eigendecomposition — all dense matmul shapes —
+with no sequential scalar recurrences at all.
 
 Design (robust basis variant): the search space S = [X, W, P] (current
 iterates, preconditioned residuals, direction history) is re-orthonormalized
@@ -31,7 +31,7 @@ operator's own halo exchange (``HaloDIA.matmat`` — one exchange for the
 whole block).  QR of the row-sharded basis is replaced by shifted CholQR2
 (two rounds of G = psum(SᴴS); chol(G + σI); S ← S·L⁻ᴴ — Fukaya et al.'s
 shifted CholeskyQR, whose Gram+triangular-solve structure is exactly the
-MXU/psum shape), and the small Rayleigh–Ritz eigenproblem is solved
+matmul/psum shape), and the small Rayleigh–Ritz eigenproblem is solved
 redundantly on every device from the replicated psum'd projection — no
 gather of the basis, ever.
 """
@@ -116,9 +116,8 @@ def lobpcg(
     block-size heuristic (Knyazev §4).  Convergence is tested on (and the
     return holds) the wanted ``k`` pairs only; the buffer is clamped so the
     enlarged block still satisfies 3·(k+buffer) < n.  The per-iteration SpMM
-    grows from (n, 3k) to (n, 3(k+buffer)) — tall-skinny MXU shapes either
-    way, so on TPU the extra columns are nearly free until the block leaves
-    VMEM.
+    grows from (n, 3k) to (n, 3(k+buffer)) — the matrix is still read once
+    per SpMM, so the extra columns cost only their own vector traffic.
 
     ``axis_name``: set inside ``shard_map`` to run row-partitioned over a
     mesh axis (use :func:`~sprsolve_tpu.parallel.distributed_lobpcg` for
@@ -174,13 +173,12 @@ def lobpcg(
     tol = jnp.asarray(tol, rdt)
     max_iter = jnp.asarray(max_iter, jnp.int32)
 
-    # TPU correctness at scale: the block algebra below (QR, Gram products,
-    # basis recombinations) is (n, 3k)-shaped matmuls that XLA would run at
-    # the MXU's default bf16 input precision — at n ~ 1e6 that puts ~1e-2
-    # relative error in the Rayleigh-Ritz projections, and the residuals
-    # never drop (observed on chip at 1M rows: res stuck at ~1.0 while the
-    # Ritz values were already correct). Trace everything at HIGHEST; the
-    # cost is negligible next to the SpMM.
+    # Correctness at scale: the block algebra below (QR, Gram products,
+    # basis recombinations) is (n, 3k)-shaped matmuls that a default-
+    # precision f32 matmul may run in TF32 (~3 decimal digits) — at n ~ 1e6
+    # that puts ~1e-2 relative error in the Rayleigh-Ritz projections and
+    # the residuals stall. Trace everything at HIGHEST; the cost is
+    # negligible next to the SpMM.
     with jax.default_matmul_precision("highest"):
         def orthonormalize(S):
             if axis_name is None:

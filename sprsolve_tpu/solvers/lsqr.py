@@ -12,7 +12,7 @@ two norms — all regular vector work, no triangular solves, so it runs at
 kernel speed through jit/shard_map like the package's other solvers.  The
 adjoint is a *separate operator* (``AH``) built once at setup, mirroring how
 the layout optimizer treats A itself: a transposed gather per iteration
-would be hostile to the TPU's memory system, a second CSR in its own layout
+would scatter on every iteration, a second CSR in its own layout
 is free after construction.
 
 Complex systems are supported; all rotation scalars (α, β, ρ, c, s, φ) are

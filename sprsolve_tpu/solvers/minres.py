@@ -1,6 +1,6 @@
 """MINRES for real-symmetric / complex-Hermitian (possibly indefinite) systems.
 
-TPU-native re-design of ``src/minres.rs``: the reference's zero-copy pointer
+Re-design of ``src/minres.rs``: the reference's zero-copy pointer
 rotation of the Lanczos vectors (``src/minres.rs:92-96,151-154``) becomes plain
 carry re-binding in the while_loop state (free under XLA with donation); the
 fused SpMV+dot ``mul_vec_dot`` (``:116``) maps to the operator's
@@ -174,19 +174,8 @@ def minres(
             if axis_name is not None:
                 alpha = lax.psum(alpha, axis_name)
 
-            fused_orth = (
-                not has_precond
-                and not jnp.iscomplexobj(b)
-                and hasattr(A, "orth_norm")
-            )
-            if fused_orth:
-                # orthogonalization + ‖v₊‖² in one kernel pass
-                v_new, sumsq = A.orth_norm(v_new, v_old, v, beta, alpha)
-                if axis_name is not None:
-                    sumsq = lax.psum(sumsq, axis_name)
-            else:
-                v_new = axpy((-beta).astype(T), v_old, v_new)
-                v_new = axpy(-alpha, v, v_new)
+            v_new = axpy((-beta).astype(T), v_old, v_new)
+            v_new = axpy(-alpha, v, v_new)
 
             if has_precond:
                 w_new = M.matvec(v_new)
@@ -198,9 +187,6 @@ def minres(
                 # on the bad branch; lucky breakdown passes and converges.
                 bad = _beta_gate(beta_new2, beta * beta)
                 beta_new = jnp.sqrt(jnp.maximum(jnp.real(beta_new2), 0))
-            elif fused_orth:
-                beta_new = jnp.sqrt(sumsq)
-                w_new = s_.w_new
             else:
                 beta_new = norm2(v_new, axis_name)
                 w_new = s_.w_new

@@ -2,8 +2,8 @@
 
 Beyond the reference (no eigensolver surface) and beyond
 :func:`~sprsolve_tpu.solvers.eigs.shift_invert_eigs`: interior eigenpairs of
-a deep-spectrum Hermitian operator are the one place round-4's shift-invert
-was honest-but-slow (58 s at 262k rows — BENCH_NOTES "Eigen"), because
+a deep-spectrum Hermitian operator are the one place shift-invert is
+honest-but-slow, because
 MINRES on the *indefinite* real shift A − σI is condition-bound by the gap
 to the nearest eigenvalue, and no SPD preconditioner available to MINRES
 helps (the Poisson diagonal is constant; multigrid needs definiteness).
@@ -20,28 +20,26 @@ inner system has κ(zⱼI − A) ≤ ‖A‖ / |Im zⱼ| regardless of how dense
 real eigenvalues crowd σ.  The inner solves trade one hard indefinite
 real system for a handful of complex-symmetric ones.
 
-**Regime (measured on chip, round 5 — be honest about both halves):**
-the filter's radius must hold ~k eigenvalues, so r ~ k·Δ with Δ the local
+**Regime (be honest about both halves):** the filter's radius must hold ~k eigenvalues, so r ~ k·Δ with Δ the local
 eigenvalue SPACING at σ, and Im zⱼ ~ aspect·r.  When Δ is comfortably
 larger than machine-precision scales (moderate n, or σ in a sparse part
 of the spectrum), the inner COCG solves converge in O(√κ) iterations and
-the method delivers machine-grade interior pairs — CONVERGED at 5e-4 in
-~24 s at 32k rows on chip, exact to 1e-15 vs dense oracles on CPU.  Deep
+the method delivers machine-grade interior pairs (exact to 1e-15 vs dense
+oracles on CPU).  Deep
 interior at LARGE n (262k: Δ ≈ 1.4e-4), the displaced spectrum
 (λ − σ) + i·Im z is both sign-INDEFINITE in its real part and dense on
 the scale of Im z, and Krylov iteration counts scale like √(κ₊·κ₋) ≈
 16,000 per node — FEAST needs *accurate* resolvents where shift-invert's
 LOBPCG tolerates sloppy ones (600-iteration MINRES applies), so
-:func:`shift_invert_eigs` owns that cell (25 s run at 262k/5e-4).  The
-full measurement chain is in BENCH_NOTES "Eigen".
+:func:`shift_invert_eigs` owns that regime.
 
-TPU-native composition (no new kernels needed):
+Composition (no new kernels needed):
 
 - zI − A for real-symmetric A is complex *symmetric* → the inner solver is
   this package's :func:`~sprsolve_tpu.solvers.cocg.cocg` (one SpMV/iter).
 - The complex matvec decomposes onto the REAL fast path: (zI − A)x costs
-  two real SpMVs (re/im planes) on the Pallas/XLA DIA kernels — no complex
-  kernel variant required.
+  two real SpMVs (re/im planes) on the XLA DIA operator — no complex
+  operator variant required.
 - The m0 right-hand sides run as one ``vmap``-batched COCG (lockstep
   ``lax.while_loop``), so the matrix stream is amortized across the block —
   SpMM economics, the same reason LOBPCG beats vector-at-a-time Lanczos
@@ -183,19 +181,16 @@ def rational_filter_eigs(
     ceiling free.
 
     At large scale + small radius, κ exceeds what f32 Krylov can resolve
-    (attainable residual ≈ ε·κ — the measured wall at the 262k bench
-    workload).  Two escapes:
+    (attainable residual ≈ ε·κ).  Two escapes:
 
-    - ``inner_refine=p`` (the TPU production path): each node solve runs
-      ``p`` mixed-precision refinement passes — c64 COCG inner sweeps +
-      straight-line complex128 true-residual corrections on the XLA f64
-      DIA operator (no f64 while_loops, which this backend's x64
-      rewriter cannot compile).  The f32 solver floor ε·κ drops to the
+    - ``inner_refine=p``: each node solve runs ``p`` mixed-precision
+      refinement passes — c64 COCG inner sweeps + straight-line
+      complex128 true-residual corrections on the XLA f64 DIA operator
+      (no f64 while_loops).  The f32 solver floor ε·κ drops to the
       ~1e-7 representation floor at ~2-3× the f32 iteration count.
       Needs ``jax_enable_x64`` and a CSR/CSC input.
-    - ``inner_dtype="float64"``: run the whole filter in f64 (CPU-grade
-      backends; on this TPU backend the x64 rewriter SIGABRTs on
-      vmapped f64 while-loop internals — prefer ``inner_refine``).
+    - ``inner_dtype="float64"``: run the whole filter in f64.  Which of
+      the two is faster on a card with native f64 is not measured yet.
     """
     if k < 1:
         raise IncompatibleMatrixFormat(f"need k >= 1, got {k}")
@@ -300,9 +295,8 @@ def rational_filter_eigs(
         # ~ε₃₂·κ relative accuracy; a straight-line f64 true residual
         # against the f64 operator restarts the sweep on the correction
         # and multiplies the accuracy per pass.  The f64 state is carried
-        # as REAL PLANES — this TPU backend's x64 rewriter can compile
-        # neither f64 control flow nor c64↔c128 converts, but plain f64
-        # SpMM and real f32↔f64 converts are fine.  The result returns
+        # as real planes with straight-line f64 SpMM only (no f64 control
+        # flow, no c64↔c128 converts).  The result returns
         # as c64: ~1e-7 representation accuracy, far below the filter's
         # needs.
         zr64 = zr.astype(jnp.float64)
@@ -363,9 +357,8 @@ def rational_filter_eigs(
                 its = its + itj.astype(jnp.int32)
         # orthonormalize the filtered block (random noise fills directions
         # the filter killed — harmless, RR sorts them outside the disc).
-        # CholQR2 instead of tall QR: only m0×m0 factorizations (tall f64
-        # QR SIGABRTs the TPU compiler; Cholesky of the Gram doesn't),
-        # with a tiny trace-scaled ridge for filter-annihilated directions
+        # CholQR2 instead of tall QR: only m0×m0 factorizations, with a
+        # tiny trace-scaled ridge for filter-annihilated directions
         def _cholqr(B):
             G = jnp.matmul(B.T, B, precision=_HI)
             eps_r = jnp.asarray(

@@ -1,4 +1,4 @@
-"""Multicolor (red-black) Gauss-Seidel: the TPU-parallel reformulation.
+"""Multicolor (red-black) Gauss-Seidel: the data-parallel reformulation.
 
 True Gauss-Seidel sweeps are sequential over rows (``src/gauss_seidel.rs:111-125``)
 and cannot vectorize.  The classical fix is graph coloring: partition rows
@@ -203,7 +203,7 @@ class MaskedGSPrecond:
     Each masked update recomputes A·z with the *current* z, so classes see
     earlier classes' updates within the sweep — exact multicolor GS — but the
     computation is one full SpMV + elementwise ops per color: it runs through
-    whatever operator is supplied, including the Pallas DIA kernel, with no
+    whatever operator is supplied, including the XLA DIA path, with no
     gathers.  Cost: n_colors SpMVs per sweep (2 for stencil checkerboards).
 
     Works on flat or padded-2D vectors; masks must be in the same layout
@@ -217,7 +217,7 @@ class MaskedGSPrecond:
     stand-in for the triangular-solve SSOR of CPU libraries).
     """
 
-    A: object                    # any LinearOperator (DIA/PaddedDIA/...)
+    A: object                    # any LinearOperator (DIA/BSR/...)
     diag: jax.Array              # same layout as vectors
     masks: Tuple[jax.Array, ...]  # one boolean mask per color, vector layout
     sweeps: int = 1

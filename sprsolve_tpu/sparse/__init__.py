@@ -1,14 +1,14 @@
 """Sparse matrix containers (pytrees) and host-side builders.
 
-The reference stores matrices as ``sprs`` CSR/CSC (``src/mat.rs:47``).  On TPU
+The reference stores matrices as ``sprs`` CSR/CSC (``src/mat.rs:47``).  Here
 the *storage* format and the *execution* format are deliberately decoupled:
 
 - :class:`COO` / :class:`CSR` — canonical build/interchange formats.
-- :class:`ELL` — row-padded format; the TPU execution layout (regular shape,
-  vectorizable gather).
+- :class:`ELL` — row-padded format; the general execution layout (regular
+  shape, vectorizable gather).
 - :class:`DIA` — diagonal/banded format; the fast path for stencil matrices
   (grid Laplacians): x-gathers become contiguous shifted slices, which is the
-  speed-of-light layout for the VPU.
+  speed-of-light layout.
 
 All containers are registered pytrees, so they pass through ``jax.jit``,
 ``lax.while_loop`` carries and ``shard_map`` untouched.

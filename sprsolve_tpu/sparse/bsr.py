@@ -1,10 +1,9 @@
-"""BSR (block sparse row): the MXU-friendly layout for general sparsity.
+"""BSR (block sparse row): the dense-block layout for general sparsity.
 
-TPU gathers are slow (~8 ns/element — see tools/probe_gather.py), so the
-scalar-gather ELL path cannot approach bandwidth for unstructured matrices.
-BSR trades zero-padding for regularity the other way: nonzeros are grouped
+A scalar gather per nonzero (the ELL path) moves a column index and an x
+element for every entry, and pads every row to the longest.  BSR trades zero-padding for regularity the other way: nonzeros are grouped
 into dense (bs × bs) blocks, the SpMV becomes a batch of dense block·vector
-products (batched on the MXU) plus a row-block segment-sum, and the only
+products (batched einsums) plus a row-block segment-sum, and the only
 gather left is a *row-granular* gather of x blocks — contiguous bs-element
 moves instead of scalar picks.
 
@@ -24,15 +23,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from .containers import CSR
-
-# A scalar-prefetch Pallas kernel (one dense block per grid step, the x block
-# fetched by a dynamically-indexed block DMA, output accumulated in VMEM
-# across a block-row) was built and measured on the v5e in round 2: 51.5
-# Gnnz/s vs 127.6 for the einsum+segment_sum form on the same block-random
-# 65k-row workload — block-granular DMA issue cost dominates at one DMA per
-# 64KB block, while XLA batches the row-granular take into large contiguous
-# copies and overlaps them with the MXU batch. The kernel was deleted
-# (the same bake-off discipline as the fused-BiCGStab kernels, BENCH_NOTES).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,9 +100,9 @@ class BSR:
     def matvec(self, x: jax.Array) -> jax.Array:
         """y = A·x on a logical-length (n,) vector: row-granular gather of x
         blocks (contiguous bs-element moves), batched block·vector products
-        on the MXU, row segment-sum. ``precision=HIGHEST`` keeps the MXU
-        from truncating f32 inputs to bf16 (measured 2e-3 rel err at default
-        precision — a solver's matvec must be exact f32)."""
+        row segment-sum. ``precision=HIGHEST`` keeps a default-precision
+        f32 einsum from running in TF32 (~3 decimal digits — a solver's
+        matvec must be exact f32)."""
         bs = self.bs
         nb = self.padded_dim // bs
         xp = jnp.zeros(self.padded_dim, x.dtype).at[: self.n].set(x)
@@ -173,21 +163,19 @@ jax.tree_util.register_dataclass(
 
 @dataclasses.dataclass(frozen=True)
 class ComplexBSR:
-    """Two-plane BSR: the MXU fast path for *unstructured complex* matrices.
+    """Two-plane BSR: the block path for *unstructured complex* matrices.
 
     The reference's MKL backend runs arbitrary complex CSR at memory speed
     (``src/mkl_mat.rs:32-74,170-319``, the c/z creation and mv macros); this
-    is the TPU counterpart.  A complex SpMV over a block pattern decomposes
+    is the counterpart here.  A complex SpMV over a block pattern decomposes
     into four real block-batch products on the shared union pattern:
     y_re = A_re·x_re − A_im·x_im, y_im = A_re·x_im + A_im·x_re — executed as
     TWO batched einsums (each with the (x_re, x_im) planes stacked as a
     k=2 rhs) plus one plane-stacked row segment-sum.
 
-    Storage is real re/im block planes (pytree leaves are real arrays, so
-    the operator crosses jit boundaries on backends that reject complex
-    device buffers — the same planes discipline as
-    :class:`~sprsolve_tpu.ops.pallas_spmv.ComplexPaddedDIA`); the complex
-    view exists only inside compiled programs.
+    Storage is real re/im block planes, so the two products run as real
+    einsums over a shared pattern; the complex view is formed at the
+    operator boundary.
     """
 
     blocks_re: jax.Array   # (nblk, bs, bs) real plane

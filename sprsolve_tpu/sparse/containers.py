@@ -1,7 +1,8 @@
 """Sparse containers as JAX pytrees.
 
 Replaces the reference's ``sprs``-based storage (``src/mat.rs``) with formats
-chosen for the TPU memory system rather than for pointer-chasing CPUs:
+chosen for an accelerator's memory system rather than for pointer-chasing
+CPUs:
 
 - COO: build format; SpMV = gather + segment-sum (the correctness oracle).
 - CSR: interchange format; carries a precomputed COO-style ``row_ids`` array so
@@ -10,11 +11,10 @@ chosen for the TPU memory system rather than for pointer-chasing CPUs:
 
 Build/interchange formats (COO/CSR/CSC) keep **host** (NumPy) arrays — they
 are assembled, analyzed and converted on the host; device placement happens
-when an *execution* format (ELL/DIA/BSR/PaddedDIA) is built or when jnp ops
-consume them. This avoids device round-trips during assembly and lets
-complex matrices be built even on backends without complex device buffers.
-- ELL: every row padded to ``k`` entries → dense (n, k) tiles, regular access
-  for the VPU; pad entries have value 0 and column 0 (they contribute nothing).
+when an *execution* format (ELL/DIA/BSR) is built or when jnp ops consume
+them. This avoids device round-trips during assembly.
+- ELL: every row padded to ``k`` entries → dense (n, k) tiles, regular
+  access; pad entries have value 0 and column 0 (they contribute nothing).
 - DIA: offset-diagonal storage for banded/stencil matrices; SpMV uses shifted
   contiguous slices instead of gathers (no irregular memory access at all).
 
@@ -26,7 +26,7 @@ The matvec entry points are in ``sprsolve_tpu.ops.spmv``; containers expose
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -233,7 +233,7 @@ _register(
 
 @dataclasses.dataclass(frozen=True)
 class ELL:
-    """ELLPACK: each row padded to ``k`` slots — the TPU execution layout.
+    """ELLPACK: each row padded to ``k`` slots — the general execution layout.
 
     Pad slots carry (col=0, val=0). Analog of the reference's
     ``mkl_sparse_optimize`` layout conversion (``src/mkl_mat.rs:112-116``):
@@ -309,18 +309,43 @@ class DIA:
 
     Band values are stored at their *row* index; entries whose column
     ``i + off`` falls outside [0, n) must be zero.  For stencil matrices this
-    turns every x-access into a contiguous shifted slice — no gathers at all,
-    which is the TPU speed-of-light layout (HBM-bandwidth bound at
-    ~8 bytes/nnz for f32 instead of 12-16 with explicit indices).
+    turns every x-access into a contiguous shifted slice — no gathers at all
+    (HBM-bandwidth bound at ~4 bytes/nnz for f32 bands instead of 8-12 with
+    explicit indices).
+
+    ``vdtype`` is set when the bands are stored narrower than the dtype the
+    operator computes in (see :meth:`narrow`); the bands are then widened
+    in registers inside the fused SpMV.
     """
 
     bands: jax.Array          # (n_diags, n_rows)
     offsets: Tuple[int, ...]  # static
     shape: Tuple[int, int]
+    vdtype: Optional[str] = None
 
     @property
     def dtype(self):
-        return self.bands.dtype
+        return jnp.dtype(self.vdtype) if self.vdtype else self.bands.dtype
+
+    def narrow(self) -> "DIA":
+        """The same operator with f32 bands stored in the narrowest dtype
+        that represents every value EXACTLY: int8 for small integers, else
+        bfloat16, else unchanged.  Band bytes dominate a stencil SpMV
+        (D of its D+2 streams), so this cuts its memory traffic with
+        bit-identical results; never lossy."""
+        bands = np.asarray(self.bands)
+        if self.vdtype or bands.dtype != np.float32 or bands.size == 0:
+            return self
+        if np.abs(bands).max() <= 127 and np.all(bands == np.round(bands)):
+            narrow = bands.astype(np.int8)
+        else:
+            import ml_dtypes
+
+            narrow = bands.astype(ml_dtypes.bfloat16)
+            if not np.array_equal(narrow.astype(np.float32), bands):
+                return self
+        return DIA(bands=jnp.asarray(narrow), offsets=self.offsets,
+                   shape=self.shape, vdtype="float32")
 
     @staticmethod
     def arrays_from_csr(m: CSR, max_diags: int = 64):
@@ -367,11 +392,11 @@ class DIA:
 
     def diagonal(self) -> jax.Array:
         if 0 in self.offsets:
-            return self.bands[self.offsets.index(0)]
+            return self.bands[self.offsets.index(0)].astype(self.dtype)
         return jnp.zeros(self.shape[0], dtype=self.dtype)
 
 
-_register(DIA, data_fields=("bands",), meta_fields=("offsets", "shape"))
+_register(DIA, data_fields=("bands",), meta_fields=("offsets", "shape", "vdtype"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,6 @@
 
 from . import timing
 from .io import mmread, mmwrite
-from .tuning import tune_complex_padded_dia, tune_padded_dia
 from .problems import (
     grid_laplacian_dirichlet,
     set_boundary_condition,
@@ -17,8 +16,6 @@ from .problems import (
 __all__ = [
     "mmread",
     "mmwrite",
-    "tune_padded_dia",
-    "tune_complex_padded_dia",
     "grid_laplacian_dirichlet",
     "set_boundary_condition",
     "sym_grid_laplacian",

@@ -1,6 +1,6 @@
 """Test/benchmark problem generators.
 
-NumPy ports of the reference test matrices so the TPU framework is validated
+NumPy ports of the reference test matrices so the framework is validated
 on the *same* systems at the same tolerances:
 
 - :func:`grid_laplacian_dirichlet` + :func:`set_boundary_condition` — the
@@ -15,8 +15,8 @@ on the *same* systems at the same tolerances:
   ``tests/test_complex_solve.rs:95-214``.
 - :func:`complex_symmetric_grid_with_diag` — the complex-*symmetric*
   (non-Hermitian) variant, ``tests/test_complex_solve2.rs:35-96``.
-- :func:`poisson3d` — 7-point 3-D Poisson (vectorized; used for the ~1M-row
-  single-chip roofline config of BASELINE.md).
+- :func:`poisson3d` — 7-point 3-D Poisson (vectorized; used for the
+  10M-row card check in ``chip_smoke.py``).
 
 All builders return NumPy/CSR data; convert with ``CSR.from_arrays`` /
 ``csr_from_scipy`` or the provided helpers.
@@ -215,8 +215,8 @@ def complex_symmetric_grid_with_diag(
 
 def poisson3d(nx: int, ny: int, nz: int, dtype=np.float32) -> CSR:
     """7-point 3-D Poisson operator with Dirichlet elimination (interior-only
-    unknowns), fully vectorized — used for the ~1M-row roofline benchmark
-    (BASELINE.md config #4)."""
+    unknowns), fully vectorized — used for the 1M-row bench and the
+    10M-row card check (BASELINE.md config #4)."""
     n = nx * ny * nz
     idx = np.arange(n, dtype=np.int64)
     iz = idx % nz
@@ -261,7 +261,7 @@ def convection_diffusion3d(
     number ``peclet`` the x-coupling is strongly one-sided, plain
     restarted GMRES stalls and short-recurrence methods wobble — the
     regime the flexible inner-outer solvers exist for.  Banded (same 7
-    offsets as :func:`poisson3d`), so the DIA/Pallas kernels serve it.
+    offsets as :func:`poisson3d`), so the DIA path serves it.
     """
     n = nx * ny * nz
     idx = np.arange(n, dtype=np.int64)

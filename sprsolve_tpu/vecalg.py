@@ -1,8 +1,8 @@
 """Dense BLAS-1 vector algebra for the solvers.
 
-TPU-native counterpart of the reference's ``src/vecalg.rs`` (842 LoC of
-generic-fallback + CBLAS/MKL dual paths).  On TPU there is no BLAS to dispatch
-to: each primitive is a tiny jnp expression that XLA fuses into neighboring
+Counterpart of the reference's ``src/vecalg.rs`` (842 LoC of
+generic-fallback + CBLAS/MKL dual paths).  There is no BLAS to dispatch to:
+each primitive is a tiny jnp expression that XLA fuses into neighboring
 ops, so the whole module collapses to named functions that keep the solver
 code reading like the math.
 

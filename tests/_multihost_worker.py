@@ -4,7 +4,7 @@ Launched N times by tests/test_multihost.py with distinct process ids; each
 process owns 4 virtual CPU devices and joins a Gloo cluster, so the global
 mesh spans 2 processes × 4 devices — the same code paths (global mesh,
 ``host_to_global`` placement, cross-process psum/ppermute inside shard_map,
-final all-gather) that a real multi-host TPU pod run takes.
+final all-gather) that a real multi-host GPU cluster run takes.
 """
 
 import sys

@@ -258,8 +258,8 @@ def test_bicgstabl_insufficient_iterations_status():
 
 
 def test_bicgstabl_through_solve_api_padded_kernel():
-    """solve(method='bicgstabl') routes banded matrices through the Pallas
-    PaddedDIA layout; result must match the flat path."""
+    """solve(method='bicgstabl') routes banded matrices through optimize()'s
+    DIA layout; result must match the unoptimized CSR path."""
     A, b = _dirichlet()
     x, info = sp.solve(A, b, method="bicgstabl", M="jacobi", tol=1e-11,
                        max_iter=500)

@@ -1,6 +1,6 @@
 """Block-Jacobi preconditioner and Lanczos spectral-bound estimation.
 
-BlockJacobiPrecond is the MXU-batched generalization of the reference's
+BlockJacobiPrecond is the batched dense-block generalization of the reference's
 ``DiagPrecond`` (``src/precond.rs``); these tests pin its apply to the dense
 block-diagonal-inverse oracle and verify it accelerates and stays valid for
 the SPD-gated solvers.

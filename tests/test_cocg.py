@@ -86,7 +86,7 @@ def test_cocg_matches_dense_oracle_counts():
 
 
 def test_cocg_through_solve_api():
-    """solve(method='cocg', M='jacobi') routes through ComplexPaddedDIA with
+    """solve(method='cocg', M='jacobi') routes through the complex DIA with
     the complex Jacobi and converges."""
     A, rhs, _ = _problem()
     x, info = sp.solve(A, rhs, method="cocg", M="jacobi", tol=1e-12,
@@ -121,23 +121,21 @@ def test_cocg_residual_trace():
 
 
 def test_cocg_distributed():
-    """COCG over the 8-device mesh with DistComplexPaddedDIA and the
+    """COCG over the 8-device mesh with c64 bands in a HaloDIA and the
     distributed complex Jacobi."""
-    from sprsolve_tpu import debug
-    from sprsolve_tpu.parallel import DistComplexPaddedDIA, distributed_solve
+    from sprsolve_tpu.parallel import distributed_solve
 
     A, rhs, _ = problems.complex_symmetric_grid_with_diag(
         (16, 16), dtype=np.complex64
     )
-    op = DistComplexPaddedDIA.from_dia(A.to_dia(), 8, lanes=128, block_rows=8)
     mesh = jax.make_mesh((8,), ("rows",), devices=jax.devices()[:8])
     dense = np.asarray(A.todense())
-    with debug.interpret_kernels():
-        x, info = distributed_solve(
-            cocg, op, jnp.asarray(rhs.astype(np.complex64)),
-            M=op.jacobi_precond(), tol=1e-5, max_iter=500, mesh=mesh,
-        )
-        info.raise_if_error()
+    x, info = distributed_solve(
+        cocg, A.to_dia(), jnp.asarray(rhs.astype(np.complex64)),
+        M=_CDP.new(np.asarray(dense.diagonal())), tol=1e-5, max_iter=500,
+        mesh=mesh,
+    )
+    info.raise_if_error()
     r = dense @ np.asarray(x) - rhs
     assert np.linalg.norm(r) / np.linalg.norm(rhs) < 1e-4
 

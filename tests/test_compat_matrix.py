@@ -150,7 +150,7 @@ def _complex_sym_cell(method, M, tol=1e-12, bound=1e-9):
 
 @pytest.mark.parametrize("method", sorted(_SOLVERS))
 def test_f32_cells(method):
-    """Every method also runs in the TPU kernel dtype (f32) end to end."""
+    """Every method also runs in f32 end to end."""
     if method in _COMPLEX_SYM:
         from sprsolve_tpu.utils import problems
 

@@ -249,19 +249,17 @@ def test_solve_cs_minres_rejects_block_jacobi_string():
 
 
 def test_solve_cs_minres_jacobi_on_real_banded():
-    """Review regression: a REAL banded matrix (optimize → PaddedDIA, which
-    has diagonal_padded but no re/im planes) crashed real_abs_jacobi; a real
-    symmetric system is trivially complex-symmetric, so cs_minres+jacobi
-    must work on it."""
+    """Review regression: a REAL banded matrix (optimize → narrow-band DIA)
+    once crashed real_abs_jacobi; a real symmetric system is trivially
+    complex-symmetric, so cs_minres+jacobi must work on it."""
     from sprsolve_tpu.utils import problems as _p
 
-    from sprsolve_tpu.ops.pallas_spmv import PaddedDIA
     from sprsolve_tpu.precond import real_abs_jacobi
 
     A = _p.grid_laplacian_dirichlet((16, 16), dtype=np.float32)
-    pd = PaddedDIA.from_dia(A.to_dia(), lanes=128, block_rows=8)
-    M = real_abs_jacobi(pd)  # used to raise AttributeError
-    assert M.diag_inv.shape == pd.diagonal_padded().shape
+    op = sp.optimize(A)
+    M = real_abs_jacobi(op)
+    assert M.diag_inv.shape == (256,) and M.diag_inv.dtype == np.float32
 
     rhs = np.zeros(256, dtype=np.float32)
     _p.set_boundary_condition(rhs, (16, 16), lambda r, c: float(r + c))

@@ -1,4 +1,4 @@
-"""Debug module: interpret-mode toggle and operator checker."""
+"""Debug module: the operator checker."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,12 +38,11 @@ def test_check_operator_catches_nonlinear():
         debug.check_operator(Bad(), jnp.zeros(4))
 
 
-def test_interpret_kernels_context():
+def test_check_operator_reordered_layout():
+    """check_operator takes the operator's own vector layout (a permuted
+    Reordered operator checked on a pad_vec example)."""
+    from sprsolve_tpu.ops.reordered import Reordered
+
     A = problems.grid_laplacian_dirichlet((16, 16))
-    p = sp.PaddedDIA.from_dia(A.to_dia())
-    x = jnp.asarray(np.random.default_rng(0).standard_normal(256))
-    with debug.interpret_kernels():
-        y = p.unpad_vec(p.matvec(p.pad_vec(x)))
-    np.testing.assert_allclose(
-        np.asarray(y), np.asarray(A.matvec(x)), rtol=1e-12, atol=1e-12
-    )
+    op = Reordered.wrap(A.to_dia(), np.random.default_rng(0).permutation(256))
+    assert debug.check_operator(op, op.pad_vec(jnp.zeros(256)))

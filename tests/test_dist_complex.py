@@ -1,16 +1,17 @@
-"""Distributed complex-banded operator (DistComplexPaddedDIA): the
-complex × distributed cell — two-plane Pallas kernel per shard, ppermute
-halo exchange, psum'd fused dots; validated on the virtual 8-device CPU
-mesh in kernel-interpret mode against single-process oracles."""
+"""Distributed complex-banded solves: c64 bands in a HaloDIA (ppermute halo
+exchange, psum'd dots) on the virtual CPU mesh, against single-process
+oracles."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
+from jax.sharding import PartitionSpec as P
 
 import sprsolve_tpu as sp
-from sprsolve_tpu import debug
-from sprsolve_tpu.parallel import DistComplexPaddedDIA, distributed_solve
-from sprsolve_tpu.sparse.containers import DIA
+from sprsolve_tpu.ops.operator import mv_conj_dot, mv_wdot2
+from sprsolve_tpu.parallel import distributed_solve, partition_dia
+from sprsolve_tpu.precond import ComplexDiagPrecond
 from sprsolve_tpu.utils import problems
 
 
@@ -25,165 +26,121 @@ def _mesh(nd):
     return jax.make_mesh((nd,), ("rows",), devices=jax.devices()[:nd])
 
 
+def _cvec(seed, n=256):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+
+
+def _run(op, fn, out_specs, *vecs, nd=4):
+    mesh = _mesh(nd)
+    return jax.jit(jax.shard_map(
+        fn, mesh=mesh,
+        in_specs=(op.pspec("rows"),) + (P("rows"),) * len(vecs),
+        out_specs=out_specs, check_vma=False,
+    ))(op, *vecs)
+
+
 def test_dist_complex_matvec_matches_oracle():
     A, rhs = _complex_banded(16)
-    dia = A.to_dia()
-    op = DistComplexPaddedDIA.from_dia(dia, 4, lanes=128, block_rows=8)
-    rng = np.random.default_rng(0)
-    x = (rng.standard_normal(256) + 1j * rng.standard_normal(256)).astype(
-        np.complex64
-    )
+    op = partition_dia(A.to_dia(), 4)
+    assert op.dtype == jnp.complex64
+    x = _cvec(0)
     want = np.asarray(A.matvec(jnp.asarray(x)))
-    mesh = _mesh(4)
-    from jax.sharding import PartitionSpec as P
-
-    with debug.interpret_kernels():
-        f = jax.jit(jax.shard_map(
-            lambda o, v: o.matvec(v),
-            mesh=mesh,
-            in_specs=(op.pspec("rows"), P("rows")),
-            out_specs=P("rows"),
-            check_vma=False,
-        ))
-        got2 = f(op, op.pad_vec(jnp.asarray(x)))
-    # fetch the sharded result to host before unpadding (indexing a
-    # row-sharded array outside jit is sharding-ambiguous)
-    got = np.asarray(jax.device_get(got2)).reshape(-1)[:256]
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    got = _run(op, lambda o, v: o.matvec(v), P("rows"), jnp.asarray(x))
+    np.testing.assert_allclose(np.asarray(jax.device_get(got)), want,
+                               rtol=2e-4, atol=2e-4)
 
 
 def test_dist_complex_fused_dots_match():
     A, rhs = _complex_banded(16)
-    dia = A.to_dia()
-    op = DistComplexPaddedDIA.from_dia(dia, 4, lanes=128, block_rows=8)
-    rng = np.random.default_rng(1)
-    x = (rng.standard_normal(256) + 1j * rng.standard_normal(256)).astype(
-        np.complex64
-    )
-    mesh = _mesh(4)
-    from jax import lax
-    from jax.sharding import PartitionSpec as P
+    op = partition_dia(A.to_dia(), 4)
+    x = _cvec(1)
 
     def fused(o, v):
         y, d = o.matvec_dot(v)
-        z, dc = o.matvec_conj_dot(v)
-        return [y, lax.psum(d, "rows"), z, lax.psum(dc, "rows")]
+        z, dc = mv_conj_dot(o, v, "rows")
+        return [y, lax.psum(d, "rows"), z, dc]
 
-    with debug.interpret_kernels():
-        f = jax.jit(jax.shard_map(
-            fused,
-            mesh=mesh,
-            in_specs=(op.pspec("rows"), P("rows")),
-            out_specs=[P("rows"), P(), P("rows"), P()],
-            check_vma=False,
-        ))
-        y2, d, z2, dc = f(op, op.pad_vec(jnp.asarray(x)))
-    unpad = lambda a: np.asarray(jax.device_get(a)).reshape(-1)[:256]
+    y2, d, z2, dc = _run(op, fused, [P("rows"), P(), P("rows"), P()],
+                         jnp.asarray(x))
     want_y = np.asarray(A.matvec(jnp.asarray(x)))
-    np.testing.assert_allclose(unpad(y2), want_y, rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(
-        complex(d), np.vdot(x, want_y), rtol=2e-4, atol=2e-3
-    )
+    np.testing.assert_allclose(np.asarray(jax.device_get(y2)), want_y,
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(complex(d), np.vdot(x, want_y), rtol=2e-4,
+                               atol=2e-3)
     want_z = np.asarray(A.matvec(jnp.asarray(np.conj(x))))
-    np.testing.assert_allclose(unpad(z2), want_z, rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(
-        complex(dc), np.vdot(x, want_z), rtol=2e-4, atol=2e-3
-    )
+    np.testing.assert_allclose(np.asarray(jax.device_get(z2)), want_z,
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(complex(dc), np.vdot(x, want_z), rtol=2e-4,
+                               atol=2e-3)
 
 
 def test_distributed_complex_bicgstab_and_cs_minres():
-    """End-to-end distributed complex solves: planes-BiCGStab with the
-    complex Jacobi and preconditioned CS-MINRES with the real |d| Jacobi,
-    both through distributed_solve on 8 virtual devices."""
+    """End-to-end distributed complex solves: BiCGStab with the complex
+    Jacobi and preconditioned CS-MINRES with the real |d| Jacobi, both
+    through distributed_solve on 8 virtual devices."""
     A, rhs = _complex_banded(16)
     dia = A.to_dia()
-    op = DistComplexPaddedDIA.from_dia(dia, 8, lanes=128, block_rows=8)
     mesh = _mesh(8)
     dense = np.asarray(A.todense())
+    d = np.asarray(dense.diagonal())
 
-    with debug.interpret_kernels():
-        x1, info1 = distributed_solve(
-            sp.bicgstab, op, jnp.asarray(rhs), M=op.jacobi_precond(),
-            tol=1e-5, max_iter=300, mesh=mesh,
-        )
-        info1.raise_if_error()
-        r1 = dense @ np.asarray(x1) - rhs
-        assert np.linalg.norm(r1) / np.linalg.norm(rhs) < 1e-4
+    x1, info1 = distributed_solve(
+        sp.bicgstab, dia, jnp.asarray(rhs), M=ComplexDiagPrecond.new(d),
+        tol=1e-5, max_iter=300, mesh=mesh,
+    )
+    info1.raise_if_error()
+    r1 = dense @ np.asarray(x1) - rhs
+    assert np.linalg.norm(r1) / np.linalg.norm(rhs) < 1e-4
 
-        x2, info2 = distributed_solve(
-            sp.cs_minres, op, jnp.asarray(rhs), M=op.abs_jacobi_precond(),
-            tol=1e-5, max_iter=300, mesh=mesh,
-        )
-        info2.raise_if_error()
-        r2 = dense @ np.asarray(x2) - rhs
-        assert np.linalg.norm(r2) / np.linalg.norm(rhs) < 1e-4
+    x2, info2 = distributed_solve(
+        sp.cs_minres, dia, jnp.asarray(rhs),
+        M=sp.DiagPrecond.new(np.abs(d).astype(np.float32)),
+        tol=1e-5, max_iter=300, mesh=mesh,
+    )
+    info2.raise_if_error()
+    r2 = dense @ np.asarray(x2) - rhs
+    assert np.linalg.norm(r2) / np.linalg.norm(rhs) < 1e-4
 
 
 def test_distributed_flat_complex_jacobi_is_relaid():
-    """Review regression: a flat (n,)-planes ComplexDiagPrecond (the
-    natural host-side build) must be re-laid into the kernel's 2-D padded
-    layout by distributed_solve, with inert 1+0i pad reciprocals."""
-    from sprsolve_tpu.precond import ComplexDiagPrecond
-
-    A, rhs = _complex_banded(16)
-    dia = A.to_dia()
-    op = DistComplexPaddedDIA.from_dia(dia, 4, lanes=128, block_rows=8)
-    mesh = _mesh(4)
+    """A flat (n,)-planes ComplexDiagPrecond (the natural host-side build)
+    is padded to the row-padded layout by distributed_solve, with inert
+    1+0i pad reciprocals (225 rows over 4 devices → 3 pad rows)."""
+    A, rhs = _complex_banded(15)
     dense = np.asarray(A.todense())
     M_flat = ComplexDiagPrecond.new(np.asarray(dense.diagonal()))
-    assert M_flat.inv_re.ndim == 1
-
-    with debug.interpret_kernels():
-        x, info = distributed_solve(
-            sp.bicgstab, op, jnp.asarray(rhs), M=M_flat,
-            tol=1e-5, max_iter=300, mesh=mesh,
-        )
-        info.raise_if_error()
+    assert M_flat.inv_re.shape == (225,)
+    x, info = distributed_solve(
+        sp.bicgstab, A.to_dia(), jnp.asarray(rhs), M=M_flat,
+        tol=1e-5, max_iter=300, mesh=_mesh(4),
+    )
+    info.raise_if_error()
+    assert x.shape == (225,)
     r = dense @ np.asarray(x) - rhs
     assert np.linalg.norm(r) / np.linalg.norm(rhs) < 1e-4
 
 
 def test_dist_complex_wdot_matches_composed():
-    """Fused per-shard complex w-dot (BiCGStab's barriers) vs the composed
-    matvec + conj_dot oracle, including the w = x dedup path."""
-    from jax import lax
-    from jax.sharding import PartitionSpec as P
-
-    from sprsolve_tpu.vecalg import conj_dot
-
+    """BiCGStab's SpMV+dots helper under shard_map (psum'd dots) vs the
+    composed single-device oracle, including w = x."""
     A, rhs = _complex_banded(16)
-    dia = A.to_dia()
-    op = DistComplexPaddedDIA.from_dia(dia, 4, lanes=128, block_rows=8)
-    rng = np.random.default_rng(7)
-    mk = lambda s: (rng.standard_normal(256)
-                    + 1j * rng.standard_normal(256)).astype(np.complex64)
-    x, w = mk(0), mk(1)
-    mesh = _mesh(4)
+    op = partition_dia(A.to_dia(), 4)
+    x, w = _cvec(0), _cvec(1)
 
     def fused(o, v, wv):
-        y, wd, yd = o.matvec_wdot(v, wv)
-        y2, wd2, yd2 = o.matvec_wdot(v, v)  # dedup path
-        return [y, lax.psum(wd, "rows"), lax.psum(yd, "rows"),
-                lax.psum(wd2, "rows")]
+        y, wd, yd = mv_wdot2(o, v, wv, "rows")
+        _, wd2, _ = mv_wdot2(o, v, v, "rows")
+        return [y, wd, yd, wd2]
 
-    with debug.interpret_kernels():
-        f = jax.jit(jax.shard_map(
-            fused, mesh=mesh,
-            in_specs=(op.pspec("rows"), P("rows"), P("rows")),
-            out_specs=[P("rows"), P(), P(), P()],
-            check_vma=False,
-        ))
-        y2d, wd, yd, wd_x = f(op, op.pad_vec(jnp.asarray(x)),
-                              op.pad_vec(jnp.asarray(w)))
+    y2d, wd, yd, wd_x = _run(op, fused, [P("rows"), P(), P(), P()],
+                             jnp.asarray(x), jnp.asarray(w))
     want_y = np.asarray(A.matvec(jnp.asarray(x)))
-    got_y = np.asarray(jax.device_get(y2d)).reshape(-1)[:256]
-    np.testing.assert_allclose(got_y, want_y, rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(
-        complex(wd), np.vdot(w, want_y), rtol=2e-4, atol=2e-3
-    )
-    np.testing.assert_allclose(
-        complex(yd), np.vdot(want_y, want_y), rtol=2e-4, atol=2e-3
-    )
-    np.testing.assert_allclose(
-        complex(wd_x), np.vdot(x, want_y), rtol=2e-4, atol=2e-3
-    )
+    np.testing.assert_allclose(np.asarray(jax.device_get(y2d)), want_y,
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(complex(wd), np.vdot(w, want_y), rtol=2e-4,
+                               atol=2e-3)
+    np.testing.assert_allclose(complex(yd), np.vdot(want_y, want_y),
+                               rtol=2e-4, atol=2e-3)
+    np.testing.assert_allclose(complex(wd_x), np.vdot(x, want_y), rtol=2e-4,
+                               atol=2e-3)

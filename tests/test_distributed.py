@@ -1,7 +1,7 @@
 """Distributed-solve tests on a virtual 8-device CPU mesh — the same
-shard_map/psum/ppermute code paths that run on a TPU pod (SURVEY.md §4:
-"test multi-chip logic without a pod via the host-platform device-count
-override")."""
+shard_map/psum/ppermute code paths that run on a multi-GPU mesh (SURVEY.md
+§4: test multi-device logic without the devices via the host-platform
+device-count override)."""
 
 import jax
 import jax.numpy as jnp

@@ -141,7 +141,7 @@ def test_gmres_record_residuals():
 
 def test_solve_api_gmres_padded_layout():
     """solve(method='gmres') through optimize(): the banded matrix lands on
-    PaddedDIA, whose 2-D kernel-layout vectors gmres must handle."""
+    the narrow-band DIA, whose widened f32 products gmres must handle."""
     A = problems.grid_laplacian_dirichlet((16, 16))
     dense32 = np.asarray(A.todense()).astype(np.float32)
     csr = sp.csr_from_dense(dense32)
@@ -152,7 +152,8 @@ def test_solve_api_gmres_padded_layout():
     dense = np.asarray(A.todense())
     assert _true_res(dense, x, rhs) < 1e-5
     op = sp.optimize(csr)
-    assert hasattr(op, "pad_vec")  # the padded path really was exercised
+    # the narrow-band DIA route really was exercised
+    assert isinstance(op, sp.DIA) and op.bands.dtype == np.int8
 
 
 def test_gmres_object_api():

@@ -43,7 +43,7 @@ def _poisson_plus_outliers(side=40, n_out=60, seed=0, dtype=np.float64):
 def test_matvec_matches_scipy():
     S = _poisson_plus_outliers()
     A = sp.csr_from_scipy(S)
-    H = HybridDIA.from_csr(A, max_diags=8, prefer_pallas=False)
+    H = HybridDIA.from_csr(A, max_diags=8)
     assert H.n_outliers > 0
     x = np.random.default_rng(1).standard_normal(S.shape[0])
     got = np.asarray(H.matvec(jnp.asarray(x)))
@@ -56,7 +56,8 @@ def test_matvec_matches_scipy():
 def test_matvec_matches_scipy_f32_pallas_core():
     S = _poisson_plus_outliers(dtype=np.float32)
     A = sp.csr_from_scipy(S)
-    H = HybridDIA.from_csr(A, max_diags=8, prefer_pallas=True)
+    H = HybridDIA.from_csr(A, max_diags=8)
+    assert isinstance(H.core, sp.DIA) and H.core.dtype == jnp.float32
     x = np.random.default_rng(1).standard_normal(S.shape[0]).astype(np.float32)
     got = np.asarray(H.matvec(jnp.asarray(x)))
     np.testing.assert_allclose(got, S @ x, rtol=2e-5, atol=2e-5)
@@ -118,7 +119,7 @@ def test_optimize_keeps_uniform_random_off_hybrid():
     A = sp.csr_from_scipy(S.tocsr())
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        op = optimize(A, prefer_pallas=False)
+        op = optimize(A)
     inner = op.inner if isinstance(op, Reordered) else op
     assert not isinstance(inner, HybridDIA)
     x = np.random.default_rng(2).standard_normal(600)

@@ -215,7 +215,7 @@ def test_solve_api_ilu0_string():
     A = _spd_csr(dtype=np.float32)
     b = np.random.default_rng(2).standard_normal(256).astype(np.float32)
     # through plain solve(): optimize() routes the banded matrix to the
-    # padded Pallas layout, M='ilu0' must relay through it transparently
+    # narrow-band DIA; M='ilu0' composes with it
     x, info = sp.solve(A, b, method="bicgstab", M="ilu0", tol=1e-8, max_iter=2000)
     r = np.asarray(A.matvec(jnp.asarray(x))) - b
     assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-6

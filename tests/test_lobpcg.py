@@ -107,15 +107,16 @@ def test_scipy_compat_lobpcg():
 
 
 def test_padded_kernel_operator():
-    # optimize() returns a PaddedDIA for banded matrices; lobpcg must accept
+    # an operator with its own (permuted) vector layout: lobpcg must accept
     # it (auto flat-view) and match the flat-operator result
     A, dense = _spd_poisson(10)
-    from sprsolve_tpu.ops.optimize import optimize
+    from sprsolve_tpu.ops.reordered import Reordered
 
-    op = optimize(
+    op = Reordered.wrap(
         sp.CSR.from_arrays(
             np.asarray(A.data, np.float32), A.indices, A.indptr, A.shape
-        )
+        ).to_dia(),
+        np.arange(100)[::-1],
     )
     assert hasattr(op, "pad_vec")
     X0 = jnp.asarray(
@@ -166,7 +167,7 @@ def test_multigrid_preconditioned_lobpcg():
     convergence is gap-limited; the V-cycle restores it (12 vs 80+ iters
     at 24^3 in f32). Also pins the combination docs/preconditioners.md
     advertises — it was untested before round 4 (found together with the
-    MXU default-precision bug this file's solver now guards against)."""
+    default-precision matmul bug this file's solver now guards against)."""
     n_side = 16
     A = problems.poisson3d(n_side, n_side, n_side, dtype=np.float32)
     M = sp.GridMGPrecond.from_csr(A, (n_side,) * 3)

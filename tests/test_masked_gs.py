@@ -1,13 +1,12 @@
 """MaskedGSPrecond: equivalence with the gathered ColoredELL sweep, and the
-full Pallas-layout BiCGStab + GS-preconditioner combination (BASELINE config
-#4's solver stack, miniature)."""
+full BiCGStab + GS-preconditioner combination on optimize()'s narrow-band
+DIA (BASELINE config #4's solver stack, miniature)."""
 
 
 import jax.numpy as jnp
 import numpy as np
 
 import sprsolve_tpu as sp
-import sprsolve_tpu.ops.pallas_spmv as ps
 from sprsolve_tpu.solvers.redblack import ColoredELL
 from sprsolve_tpu.utils import problems
 
@@ -51,24 +50,22 @@ def test_masked_gs_precond_accelerates_bicgstab():
 
 
 def test_masked_gs_in_pallas_layout():
-    """The whole stack — Pallas SpMV + masked-GS preconditioner + BiCGStab —
-    in the kernel's padded 2-D layout (interpret mode via conftest)."""
+    """The whole stack — narrow-band DIA SpMV + masked-GS preconditioner +
+    BiCGStab — in f32, as optimize() lays it out."""
     A, b = _dirichlet((16, 16))
-    p = ps.PaddedDIA.from_dia(A.to_dia())
+    A32 = sp.CSR.from_arrays(np.asarray(A.data, np.float32), A.indices,
+                             A.indptr, A.shape)
+    op = sp.optimize(A32)
+    assert op.bands.dtype == jnp.int8
     colors = sp.greedy_color(A)
-    masks_flat = sp.color_masks(colors)
-    masks_padded = tuple(
-        p.pad_vec(m.astype(jnp.float64)).astype(bool) for m in masks_flat
-    )
     M = sp.MaskedGSPrecond(
-        A=p, diag=p.diagonal_padded(), masks=masks_padded, sweeps=1
+        A=op, diag=op.diagonal(), masks=sp.color_masks(colors), sweeps=1
     )
-    b2 = p.pad_vec(jnp.asarray(b))
-    x2, info = sp.bicgstab(p, b2, M=M, tol=1e-13, max_iter=1500)
+    x, info = sp.bicgstab(op, jnp.asarray(b, jnp.float32), M=M, tol=1e-6,
+                          max_iter=1500)
     info.raise_if_error()
-    x = p.unpad_vec(x2)
-    r = np.asarray(A.matvec(x)) - b
-    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-10
+    r = np.asarray(A.matvec(np.asarray(x, np.float64))) - b
+    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-5
 
 
 def _spd_poisson(side=12):

@@ -114,8 +114,8 @@ def test_3d_poisson_bicgstab():
 
 
 def test_through_solve_api_padded_operator():
-    # solve() optimizes the layout (Pallas PaddedDIA in interpret mode);
-    # the flat-layout MG preconditioner rides RelayedPrecond
+    # solve() optimizes the layout (DIA); the flat-layout MG preconditioner
+    # applies directly
     A = problems.poisson3d(8, 8, 8)
     M = GridMGPrecond.from_csr(A, (8, 8, 8), coarse_max=64)
     b = np.random.default_rng(5).standard_normal(512)
@@ -131,16 +131,18 @@ def test_wrong_grid_raises():
         GridMGPrecond.from_csr(A, (8, 9))
 
 
-def test_prefer_pallas_levels_match_default():
+def test_layout_kwargs_levels_match_default():
+    """layout_kwargs reach optimize() for every level: with the banded
+    routes closed the levels run as BSR, and the V-cycle is the same linear
+    map."""
     A = problems.poisson3d(8, 8, 8)
     b = jnp.asarray(np.random.default_rng(6).standard_normal(512))
     M0 = GridMGPrecond.from_csr(A, (8, 8, 8), coarse_max=64)
     Mp = GridMGPrecond.from_csr(
-        A, (8, 8, 8), coarse_max=64, prefer_pallas=True
+        A, (8, 8, 8), coarse_max=64, max_diags=4, wide_diags=0
     )
-    from sprsolve_tpu.multigrid import FlatViewOperator
-
-    assert any(isinstance(o, FlatViewOperator) for o in Mp.ops)
+    assert isinstance(M0.ops[0], sp.DIA)
+    assert isinstance(Mp.ops[0], sp.BSR)
     z0 = np.asarray(M0.matvec(b))
     zp = np.asarray(Mp.matvec(b))
     np.testing.assert_allclose(zp, z0, rtol=1e-5, atol=1e-6)

@@ -1,5 +1,5 @@
-"""Operator-optimization tests: format selection and the complex-plane
-Pallas wrapper (interpret mode)."""
+"""Operator-optimization tests: format selection (DIA with narrow bands for
+stencils, native c64 DIA for complex stencils, BSR/hybrid/RCM otherwise)."""
 
 
 import jax.numpy as jnp
@@ -10,24 +10,27 @@ from sprsolve_tpu.utils import problems
 
 
 def test_optimize_picks_pallas_dia_for_stencil():
+    """Banded f32 → the XLA DIA operator, bands stored narrow, flat vectors
+    (no internal layout)."""
     A = problems.grid_laplacian_dirichlet((16, 16), dtype=np.float32)
     op = sp.optimize(A)
-    assert isinstance(op, sp.PaddedDIA)
+    assert isinstance(op, sp.DIA) and not hasattr(op, "pad_vec")
+    assert op.bands.dtype == jnp.int8 and op.dtype == jnp.float32
     x = jnp.asarray(np.random.default_rng(0).standard_normal(256).astype(np.float32))
-    got = np.asarray(op.unpad_vec(op.matvec(op.pad_vec(x))))
+    got = np.asarray(op.matvec(x))
     np.testing.assert_allclose(got, np.asarray(A.matvec(x)), rtol=1e-5, atol=1e-5)
 
 
 def test_optimize_routes_x64_to_xla_dia():
-    # f64 has no Mosaic lane-rotate lowering; fidelity dtypes use XLA DIA
+    # f64 bands are kept at full width (narrowing covers f32 only)
     A = problems.grid_laplacian_dirichlet((16, 16))
     op = sp.optimize(A)
-    assert isinstance(op, sp.DIA)
+    assert isinstance(op, sp.DIA) and op.bands.dtype == jnp.float64
 
 
 def test_optimize_routes_random_pattern_off_ell():
     """A non-banded pattern must land on a structured layout (Reordered DIA
-    or BSR), never the catastrophic scalar-gather ELL path (VERDICT r1 #1)."""
+    or BSR), never the scalar-gather ELL path."""
     import scipy.sparse as sps
 
     S = sps.random(300, 300, density=0.02, random_state=0, format="csr")
@@ -92,77 +95,76 @@ def test_optimize_ell_fallback_warns():
 
 def test_complex_padded_dia_matches_oracle():
     A, rhs = problems.hermitian_grid((8, 8), dtype=np.complex64)
-    dia = A.to_dia()
-    op = sp.ComplexPaddedDIA.from_dia(dia)
+    op = sp.optimize(A)
+    assert isinstance(op, sp.DIA) and op.dtype == jnp.complex64
     x = jnp.asarray(
-        np.random.default_rng(1).standard_normal(64)
-        + 1j * np.random.default_rng(2).standard_normal(64)
+        (np.random.default_rng(1).standard_normal(64)
+         + 1j * np.random.default_rng(2).standard_normal(64)).astype(np.complex64)
     )
-    got = np.asarray(op.unpad_vec(op.matvec(op.pad_vec(x))))
+    got = np.asarray(op.matvec(x))
     want = np.asarray(A.matvec(x))
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_complex_padded_dia_fused_dotmv():
-    """The fused two-plane dotmv kernel matches matvec + conj_dot composed."""
+    """c64 DIA matvec_dot matches matvec + conj_dot composed."""
     from sprsolve_tpu.vecalg import conj_dot
 
     A, rhs = problems.hermitian_grid((8, 8), dtype=np.complex64)
-    op = sp.ComplexPaddedDIA.from_dia(A.to_dia())
+    op = sp.optimize(A)
     rng = np.random.default_rng(5)
     x = jnp.asarray(
         (rng.standard_normal(64) + 1j * rng.standard_normal(64)).astype(
             np.complex64
         )
     )
-    x2 = op.pad_vec(x)
-    y, dot = op.matvec_dot(x2)
+    y, dot = op.matvec_dot(x)
     np.testing.assert_allclose(
-        np.asarray(op.unpad_vec(y)), np.asarray(A.matvec(x)), rtol=2e-5, atol=2e-5
+        np.asarray(y), np.asarray(A.matvec(x)), rtol=2e-5, atol=2e-5
     )
-    want_dot = complex(conj_dot(x2, op.matvec(x2)))
+    want_dot = complex(conj_dot(x, op.matvec(x)))
     assert abs(complex(dot) - want_dot) <= 1e-4 * max(1.0, abs(want_dot))
 
 
 def test_complex_solve_via_pallas_layout():
-    """CS-MINRES on the complex-symmetric system entirely in kernel layout
-    (c64 — the kernel dtype; c128 fidelity uses the XLA path)."""
+    """CS-MINRES on the complex-symmetric system on optimize()'s c64 DIA."""
     A, rhs, _ = problems.complex_symmetric_grid_with_diag((8, 8), dtype=np.complex64)
-    op = sp.ComplexPaddedDIA.from_dia(A.to_dia())
-    b2 = op.pad_vec(jnp.asarray(rhs))
-    x2, info = sp.cs_minres(op, b2, tol=1e-5, max_iter=300)
+    op = sp.optimize(A)
+    x, info = sp.cs_minres(op, jnp.asarray(rhs), tol=1e-5, max_iter=300)
     info.raise_if_error()
-    x = op.unpad_vec(x2)
     xk = np.array([complex(i, j) for i in range(8) for j in range(8)])
     assert np.abs(np.asarray(x) - xk).max() < 1e-2
 
 
-def test_real_planes_adapter():
-    """Complex solve with only real arrays crossing the jit boundary —
-    backends without complex device buffers can still run complex systems."""
+def test_complex_vectors_cross_jit_natively():
+    """c64 operator, right-hand side and solution cross the jit boundary as
+    complex arrays (no real-planes detour)."""
     import jax
 
     A, rhs, _ = problems.complex_symmetric_grid_with_diag((8, 8), dtype=np.complex64)
-    op = sp.ComplexPaddedDIA.from_dia(A.to_dia())
-    b2 = np.asarray(op.pad_vec(jnp.asarray(rhs)))
-    solve = jax.jit(
-        lambda a, br, bi: sp.with_real_planes(sp.cs_minres)(
-            a, br, bi, tol=1e-5, max_iter=300
-        )
-    )
-    xr, xi, info = solve(op, jnp.asarray(b2.real), jnp.asarray(b2.imag))
+    op = sp.optimize(A)
+    solve = jax.jit(lambda a, b: sp.cs_minres(a, b, tol=1e-5, max_iter=300))
+    x, info = solve(op, jnp.asarray(rhs.astype(np.complex64)))
     info.raise_if_error()
-    x = np.asarray(op.unpad_vec(np.asarray(xr) + 1j * np.asarray(xi)))
+    assert x.dtype == jnp.complex64
+    x = np.asarray(x)
     xk = np.array([complex(i, j) for i in range(8) for j in range(8)])
     assert np.abs(x - xk).max() < 1e-2
 
 
-def test_optimize_cost_model_weighs_efficiency_not_bytes():
+def test_optimize_cost_model_weighs_efficiency_not_bytes(monkeypatch):
     """A fully-dense band of 129 diagonals: wide XLA-DIA is BYTE-cheaper
-    (~4.1 B/nnz vs ~8 for BSR) but runs at ~19% of roofline vs ~90% for the
-    MXU block path — the time-weighted model must pick BSR (VERDICT r2
-    weak #4: the pure-byte model chose the slower path here)."""
+    (~4.1 B/nnz vs ~8 for BSR).  With DIA at a fraction of BSR's share of
+    the HBM peak the time-weighted model must pick BSR even so (the
+    pure-byte model chose the slower path on such a device)."""
     import scipy.sparse as sps
+
+    import importlib
+
+    opt = importlib.import_module("sprsolve_tpu.ops.optimize")
+
+    monkeypatch.setattr(opt, "EFF_XLA_DIA", 0.19)
+    monkeypatch.setattr(opt, "EFF_BSR", 0.90)
 
     n, hw = 4096, 64  # bandwidth 64 → 129 dense diagonals
     rng = np.random.default_rng(0)
@@ -231,9 +233,9 @@ def test_optimize_measure_picks_and_persists(tmp_path, monkeypatch):
 
 
 def test_optimize_measure_complex_planes(tmp_path, monkeypatch):
-    """measure=True on an unstructured complex matrix: the ComplexBSR
-    candidate is timed through its (re, im) planes form (no complex device
-    buffers) and the returned operator matches the scipy oracle."""
+    """measure=True on an unstructured complex matrix: each candidate
+    (ComplexBSR included) is timed on native c64 vectors and the returned
+    operator matches the scipy oracle."""
     import scipy.sparse as sps
 
     from sprsolve_tpu.utils import tuning
@@ -260,3 +262,29 @@ def test_optimize_measure_complex_planes(tmp_path, monkeypatch):
         np.testing.assert_allclose(got, S @ x, rtol=2e-4, atol=2e-3)
     finally:
         tuning._MEM.update(path=None, mtime=None, data={})
+
+
+def test_optimize_cost_model_uses_card_shares():
+    """With the shares measured on the H100 (DIA and BSR both near two
+    thirds of the HBM peak) the byte-cheaper wide DIA wins the same dense
+    129-diagonal band."""
+    import scipy.sparse as sps
+
+    import importlib
+
+    opt = importlib.import_module("sprsolve_tpu.ops.optimize")
+
+    assert abs(opt.EFF_XLA_DIA - opt.EFF_BSR) < 0.1
+    n, hw = 4096, 64
+    rng = np.random.default_rng(0)
+    diags = [rng.standard_normal(n - abs(k)).astype(np.float32)
+             for k in range(-hw, hw + 1)]
+    S = sps.diags(diags, list(range(-hw, hw + 1)), format="csr")
+    S = (S + sps.eye(n, format="csr") * 200.0).astype(np.float32)
+    op = sp.optimize(sp.csr_from_scipy(S))
+    inner = op.inner if hasattr(op, "inner") else op
+    assert isinstance(inner, sp.DIA) and len(inner.offsets) == 2 * hw + 1
+    x = rng.standard_normal(n).astype(np.float32)
+    got = np.asarray(op.unpad_vec(op.matvec(op.pad_vec(jnp.asarray(x))))
+                     if hasattr(op, "pad_vec") else op.matvec(jnp.asarray(x)))
+    np.testing.assert_allclose(got, S @ x, rtol=2e-4, atol=2e-3)

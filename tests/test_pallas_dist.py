@@ -1,51 +1,45 @@
-"""DistPaddedDIA: the distributed Pallas path — per-shard stencil kernel with
-ppermute halo exchange — on the virtual 8-device mesh (interpret mode)."""
-
+"""HaloDIA: the distributed banded path — per-shard XLA DIA with ppermute
+halo exchange — on the virtual 8-device mesh, against single-device
+oracles."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.sharding import PartitionSpec as P
 
 import sprsolve_tpu as sp
-from sprsolve_tpu.parallel import DistPaddedDIA, distributed_solve
+from sprsolve_tpu.parallel import distributed_solve, partition_dia
 from sprsolve_tpu.utils import problems
 
 
-def test_dist_spmv_matches_local():
-    # small lanes/blocks so 8 devices see real halo traffic
-    A = problems.poisson3d(12, 12, 12, dtype=np.float64)  # 1728 rows, offsets ±144
-    dia = A.to_dia()
-    op = DistPaddedDIA.from_dia(dia, 8, lanes=256, block_rows=8)
-    n = A.shape[0]
-    x = jnp.asarray(np.random.default_rng(0).standard_normal(n))
-    want = np.asarray(A.matvec(x))
-
+def _shard(op, fn, out_specs, *vecs):
     mesh = jax.make_mesh((8,), ("rows",))
-    from jax.sharding import PartitionSpec as P
-
     with jax.set_mesh(mesh):
-        y2 = jax.shard_map(
-            lambda o, v: o.matvec(v),
-            mesh=mesh,
-            in_specs=(op.pspec(), P("rows")),
-            out_specs=P("rows"),
-            check_vma=False,
-        )(op, op.pad_vec(x))
-    y2 = jax.device_put(y2, jax.sharding.NamedSharding(mesh, P()))
-    got = np.asarray(op.unpad_vec(y2))
-    np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-13)
+        return jax.shard_map(
+            fn, mesh=mesh,
+            in_specs=(op.pspec(),) + (P("rows"),) * len(vecs),
+            out_specs=out_specs, check_vma=False,
+        )(op, *vecs)
+
+
+def test_dist_spmv_matches_local():
+    A = problems.poisson3d(12, 12, 12, dtype=np.float64)  # 1728 rows, offsets ±144
+    op = partition_dia(A.to_dia(), 8)
+    x = jnp.asarray(np.random.default_rng(0).standard_normal(A.shape[0]))
+    want = np.asarray(A.matvec(x))
+    y = _shard(op, lambda o, v: o.matvec(v), P("rows"), x)
+    np.testing.assert_allclose(np.asarray(jax.device_get(y)), want,
+                               rtol=1e-13, atol=1e-13)
 
 
 def test_dist_pallas_bicgstab():
     A = problems.poisson3d(10, 10, 10, dtype=np.float64)
     dia = A.to_dia()
-    op = DistPaddedDIA.from_dia(dia, 8, lanes=256, block_rows=8)
-    rng = np.random.default_rng(1)
-    b = rng.standard_normal(1000)
+    b = np.random.default_rng(1).standard_normal(1000)
     M = sp.DiagPrecond.new(np.asarray(dia.diagonal()))
     x, info = distributed_solve(
-        sp.bicgstab, op, jnp.asarray(b), M=M, tol=1e-12, max_iter=500
+        sp.bicgstab, dia, jnp.asarray(b), M=M, tol=1e-12, max_iter=500
     )
     info.raise_if_error()
     assert x.shape == (1000,)
@@ -55,53 +49,31 @@ def test_dist_pallas_bicgstab():
 
 def test_dist_matvec_dot_fused_partials():
     """matvec_dot returns per-shard partials of conj(x)·(A·x) whose psum
-    equals the serial fused dot (the mkl_sparse_?_dotmv analog, distributed)."""
+    equals the serial dot (the mkl_sparse_?_dotmv analog, distributed)."""
     A = problems.poisson3d(12, 12, 12, dtype=np.float64)
-    dia = A.to_dia()
-    op = DistPaddedDIA.from_dia(dia, 8, lanes=256, block_rows=8)
-    n = A.shape[0]
-    x = jnp.asarray(np.random.default_rng(2).standard_normal(n))
+    op = partition_dia(A.to_dia(), 8)
+    x = jnp.asarray(np.random.default_rng(2).standard_normal(A.shape[0]))
     y_want = np.asarray(A.matvec(x))
-    dot_want = float(np.asarray(x) @ y_want)
-
-    mesh = jax.make_mesh((8,), ("rows",))
-    from jax.sharding import PartitionSpec as P
 
     def f(o, v):
         y, d = o.matvec_dot(v)
         return y, jax.lax.psum(d, "rows")
 
-    with jax.set_mesh(mesh):
-        y2, dot = jax.shard_map(
-            f,
-            mesh=mesh,
-            in_specs=(op.pspec(), P("rows")),
-            out_specs=(P("rows"), P()),
-            check_vma=False,
-        )(op, op.pad_vec(x))
-    y2 = jax.device_put(y2, jax.sharding.NamedSharding(mesh, P()))
-    np.testing.assert_allclose(np.asarray(op.unpad_vec(y2)), y_want, rtol=1e-13)
-    np.testing.assert_allclose(float(dot), dot_want, rtol=1e-12)
+    y, dot = _shard(op, f, (P("rows"), P()), x)
+    np.testing.assert_allclose(np.asarray(jax.device_get(y)), y_want, rtol=1e-13)
+    np.testing.assert_allclose(float(dot), float(np.asarray(x) @ y_want),
+                               rtol=1e-12)
 
 
 def test_dist_minres_fused_orth_matches_single_chip():
-    """Distributed MINRES takes the fused orth_norm/dotmv path (DistPaddedDIA
-    now mirrors PaddedDIA's kernels) and matches the single-chip solve."""
     A = problems.poisson3d(10, 10, 10, dtype=np.float64)
-    dia = A.to_dia()
-    op = DistPaddedDIA.from_dia(dia, 8, lanes=256, block_rows=8)
-    assert hasattr(op, "orth_norm")
-    rng = np.random.default_rng(3)
-    b = rng.standard_normal(1000)
-
+    b = np.random.default_rng(3).standard_normal(1000)
     x_d, info_d = distributed_solve(
-        sp.minres, op, jnp.asarray(b), tol=1e-10, max_iter=400
+        sp.minres, A.to_dia(), jnp.asarray(b), tol=1e-10, max_iter=400
     )
     info_d.raise_if_error()
     r = np.asarray(A.matvec(x_d)) - b
     assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-8
-
-    # single-chip oracle on the same operator family
     x_s, info_s = sp.minres(A.to_dia(), jnp.asarray(b), tol=1e-10, max_iter=400)
     info_s.raise_if_error()
     assert abs(int(info_d.iterations) - int(info_s.iterations)) <= max(
@@ -112,29 +84,19 @@ def test_dist_minres_fused_orth_matches_single_chip():
 def test_halo_too_wide_rejected():
     A = problems.poisson3d(12, 12, 12, dtype=np.float64)
     with pytest.raises(ValueError):
-        # offsets ±144 with lanes=128 → hr=2 > r_local=1 for huge device count
-        DistPaddedDIA.from_dia(A.to_dia(), 64, lanes=128, block_rows=1)
+        # offsets ±144 need at least 144 rows per device
+        partition_dia(A.to_dia(), 64)
 
 
 def test_distributed_bicgstab_jacobi_composed_prec():
-    """DistPaddedDIA deliberately has NO matvec_wdot_prec (folding dinv into
-    the kernel would add a halo ppermute per call — collectives are not
-    hoisted out of while_loops); DiagPrecond rides the composed path with
-    one collective per SpMV."""
-    import numpy as np
-
-    import sprsolve_tpu as sp
-    from sprsolve_tpu.parallel import DistPaddedDIA, distributed_solve
-    from sprsolve_tpu.utils import problems
-
+    """f32 system with a DiagPrecond sharded with the rows: the M apply and
+    the SpMV compose with one halo exchange per SpMV."""
     A = problems.grid_laplacian_dirichlet((16, 16), dtype=np.float32)
     rhs = np.zeros(256, dtype=np.float32)
     problems.set_boundary_condition(rhs, (16, 16), lambda r, c: np.float32(r + c))
-    op = DistPaddedDIA.from_dia(A.to_dia(), 8, lanes=128, block_rows=8)
-    assert not hasattr(op, "matvec_wdot_prec")
     M = sp.DiagPrecond.new(np.asarray(A.diagonal()))
     x, info = distributed_solve(
-        sp.bicgstab, op, jnp.asarray(rhs), M=M, tol=1e-5, max_iter=500
+        sp.bicgstab, A.to_dia(), jnp.asarray(rhs), M=M, tol=1e-5, max_iter=500
     )
     info.raise_if_error()
     r = np.asarray(A.matvec(jnp.asarray(x))) - rhs

@@ -54,16 +54,16 @@ def test_shifted_solve_through_api():
 
 
 def test_shifted_padded_operator_jacobi():
-    """solve(ShiftedOperator(PaddedDIA), M='jacobi') — the shifted Jacobi
-    rides the padded layout (1/(diag − σ), pads inert)."""
-    from sprsolve_tpu.ops.pallas_spmv import PaddedDIA
+    """solve(ShiftedOperator(Reordered DIA), M='jacobi') — the shifted
+    Jacobi 1/(diag − σ) is re-laid into the operator's permuted layout."""
+    from sprsolve_tpu.ops.reordered import Reordered
+    from sprsolve_tpu.sparse.containers import reorder_rcm
 
     A, dense = _spd()
-    p = PaddedDIA.from_dia(
-        sp.CSR.from_arrays(
-            np.asarray(A.data, np.float32), A.indices, A.indptr, A.shape
-        ).to_dia()
-    )
+    Ap, perm = reorder_rcm(sp.CSR.from_arrays(
+        np.asarray(A.data, np.float32), A.indices, A.indptr, A.shape
+    ))
+    p = Reordered.wrap(sp.DIA.from_csr(Ap, max_diags=512), perm)
     S = sp.ShiftedOperator(A=p, shift=jnp.asarray(-1.0, jnp.float32))
     b = np.random.default_rng(5).standard_normal(144).astype(np.float32)
     x, info = sp.solve(S, b, method="minres", M="jacobi", tol=1e-5,

@@ -78,8 +78,8 @@ def test_degenerate_interior_cluster_2d():
 
 
 def test_padded_kernel_layout_path():
-    """A banded matrix routed by optimize() to the padded Pallas layout:
-    the driver flattens per apply and the answer matches the flat path."""
+    """A banded matrix routed by optimize() (DIA): the driver's result
+    matches the unoptimized path."""
     A3 = problems.poisson3d(6, 6, 6, dtype=np.float64)
     dense = np.asarray(A3.todense())
     ev = np.linalg.eigvalsh(dense)

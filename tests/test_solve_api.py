@@ -84,7 +84,7 @@ def test_solve_cs_minres_accepts_jacobi():
 
 
 def test_solve_complex_padded_jacobi():
-    """M='jacobi' on the ComplexPaddedDIA path builds the complex diagonal
+    """M='jacobi' on the c64 DIA path builds the complex diagonal
     preconditioner (previously silently dropped)."""
     A, rhs, _ = problems.complex_symmetric_grid_with_diag((8, 8), dtype=np.complex64)
     x_mj, info_mj = sp.solve(A, rhs, method="bicgstab", M="jacobi", tol=1e-5, max_iter=300)
@@ -98,7 +98,7 @@ def test_solve_complex_padded_jacobi():
 
 
 def test_solve_complex_padded_warm_start():
-    """x0 threads through the real-planes runner (previously ignored)."""
+    """x0 threads through the complex solve (previously ignored)."""
     A, rhs, _ = problems.complex_symmetric_grid_with_diag((8, 8), dtype=np.complex64)
     xk = np.array([complex(i, j) for i in range(8) for j in range(8)], dtype=np.complex64)
     x, info = sp.solve(A, rhs, method="bicgstab", x0=xk, tol=1e-4, max_iter=300)
@@ -133,17 +133,16 @@ def test_prepare_reuses_layout_across_rhs():
 
 
 def test_prepare_complex_padded_planes():
-    """prepare() on a complex system whose layout optimizes to the padded
-    two-plane kernel operator: vectors cross the jit boundary as real
-    planes; re-solves and warm starts work like the real path."""
+    """prepare() on a complex system whose layout optimizes to the c64 DIA
+    operator: complex vectors cross the jit boundary as they are;
+    re-solves and warm starts work like the real path."""
     A, rhs, _diag = problems.complex_symmetric_grid_with_diag((8, 8))
     A32 = sp.CSR.from_arrays(
         np.asarray(A.data, np.complex64), A.indices, A.indptr, A.shape
     )
     handle = sp.prepare(A32, method="cs_minres", tol=1e-6, max_iter=500)
-    from sprsolve_tpu.ops.pallas_spmv import ComplexPaddedDIA
-
-    assert isinstance(handle.operator, ComplexPaddedDIA)
+    assert isinstance(handle.operator, sp.DIA)
+    assert handle.operator.dtype == jnp.complex64
     b = np.asarray(rhs, np.complex64)
     x1, info1 = handle(b)
     info1.raise_if_error()

@@ -101,28 +101,24 @@ def test_bicgstab_residual_history():
 
 
 def test_nested_restart_marker_covers_kernel_operators():
-    """BiCGStab picks its restart compilation from _prefers_nested_restart:
-    every Pallas-backed operator class must carry the marker, wrappers must
-    forward it, and plain XLA containers must not have it."""
+    """BiCGStab compiles its ρ-restart as a nested-loop exit for EVERY
+    operator (no per-class marker any more): the restart-free iteration is
+    an inner while_loop inside the outer restart loop, with no
+    vector-carrying cond in the hot body."""
+    import jax
     import numpy as np
 
-    from sprsolve_tpu.ops.pallas_spmv import ComplexPaddedDIA, PaddedDIA
     from sprsolve_tpu.ops.reordered import Reordered
-    from sprsolve_tpu.parallel.pallas_dist import (
-        DistComplexPaddedDIA,
-        DistPaddedDIA,
-    )
     from sprsolve_tpu.sparse.containers import CSR, DIA, ELL
     from sprsolve_tpu.sparse.bsr import BSR, ComplexBSR
 
-    for cls in (PaddedDIA, ComplexPaddedDIA, DistPaddedDIA,
-                DistComplexPaddedDIA):
-        assert getattr(cls, "_prefers_nested_restart", False), cls
-    for cls in (CSR, DIA, ELL, BSR, ComplexBSR):
-        assert not getattr(cls, "_prefers_nested_restart", False), cls
+    for cls in (CSR, DIA, ELL, BSR, ComplexBSR, Reordered):
+        assert not hasattr(cls, "_prefers_nested_restart"), cls
 
     A = problems.grid_laplacian_dirichlet((8, 8), dtype=np.float32)
-    p = PaddedDIA.from_dia(A.to_dia(), lanes=128, block_rows=8)
-    wrapped = Reordered.wrap(p, np.arange(64))
-    assert wrapped._prefers_nested_restart
-    assert not Reordered.wrap(A.to_dia(), np.arange(64))._prefers_nested_restart
+    b = jnp.ones(64, jnp.float32)
+    for op in (A.to_dia(), A, Reordered.wrap(A.to_dia(), np.arange(64))):
+        text = str(jax.make_jaxpr(
+            lambda a, v: sp.bicgstab(a, v, tol=1e-6, max_iter=50)
+        )(op, b))
+        assert text.count("while[") >= 2, type(op)

@@ -1,7 +1,7 @@
 """SpMV tests — ports the reference's hand-built 5×5 fixtures with hard-coded
 expected outputs (``src/mat.rs:203-281``) and its MKL cross-checks (complex
 SpMV and fused dotmv vs ``vecalg::conj_dot``, ``src/mkl_mat.rs:336-464``),
-then additionally validates every TPU execution layout (ELL, DIA) against the
+then additionally validates every execution layout (ELL, DIA) against the
 CSR oracle."""
 
 import jax.numpy as jnp

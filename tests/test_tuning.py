@@ -1,21 +1,14 @@
-"""Persisted autotune cache: measurement plumbing, cache round-trip,
-from_dia resolution order (explicit > cache > defaults), robustness to a
-corrupt cache file.  Uses tiny matrices and candidate grids — this tests
-the machinery, not performance claims (those live in bench.py / the
-tables in ops/pallas_spmv.py)."""
+"""Persisted layout-choice cache of ``optimize(measure=True)``: key
+separation, round-trip, robustness to a corrupt cache file, and the chained
+timing step.  Uses tiny matrices — this tests the machinery, not
+performance claims (those are measured on the card)."""
 
 import json
-import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sprsolve_tpu.ops.pallas_spmv import (
-    BLOCK_ROWS,
-    LANES,
-    ComplexPaddedDIA,
-    PaddedDIA,
-)
 from sprsolve_tpu.utils import problems, tuning
 
 
@@ -28,98 +21,43 @@ def cache(tmp_path, monkeypatch):
     tuning._MEM.update(path=None, mtime=None, data={})
 
 
-def _dia(n_side=12, dtype=np.float32):
-    return problems.grid_laplacian_dirichlet(
-        (n_side, n_side), dtype=dtype
-    ).to_dia()
+def _csr(side=12):
+    return problems.grid_laplacian_dirichlet((side, side), dtype=np.float32)
 
 
-def test_tune_persists_and_from_dia_resolves(cache):
-    m = _dia()
-    cands = ((128, 8), (256, 8))
-    op = tuning.tune_padded_dia(m, candidates=cands, iters=3)
-    assert isinstance(op, PaddedDIA)
-    assert (op.lanes, op.block_rows) in cands
-    saved = json.load(open(cache))
-    (key, ent), = saved.items()
-    assert key.startswith("dia|") and "|b" in key and "|n" in key
-    assert ent["lanes"] == op.lanes and ent["block_rows"] == op.block_rows
-    assert ent["gnnz_s"] > 0
-    # a fresh from_dia with NO explicit geometry picks up the tuned one
-    op2 = PaddedDIA.from_dia(m)
-    assert (op2.lanes, op2.block_rows) == (op.lanes, op.block_rows)
-    # same shape class (size bucket 256: 144 and 169 rows): a nearby size
-    # also resolves
-    op3 = PaddedDIA.from_dia(_dia(13))
-    assert (op3.lanes, op3.block_rows) == (op.lanes, op.block_rows)
-    # correctness of the tuned operator
-    import jax.numpy as jnp
-
-    x = np.random.default_rng(0).standard_normal(m.shape[0]).astype(np.float32)
-    got = np.asarray(op.unpad_vec(op.matvec(op.pad_vec(jnp.asarray(x)))))
-    from sprsolve_tpu.ops.spmv import spmv_dia
-
-    np.testing.assert_allclose(got, np.asarray(spmv_dia(m, jnp.asarray(x))),
-                               rtol=1e-5, atol=1e-5)
+def test_layout_persists_and_resolves(cache):
+    A = _csr()
+    sig = tuning.pattern_sig(A.shape[0], A.nnz, A.indptr, A.indices)
+    assert tuning.lookup_layout(sig, np.float32) is None
+    tuning.store_layout(sig, np.float32, "bsr32", 12.5)
+    assert tuning.lookup_layout(sig, np.float32) == "bsr32"
+    (key, ent), = json.load(open(cache)).items()
+    assert key.startswith("layout|") and sig in key
+    assert ent["label"] == "bsr32" and ent["gnnz_s"] == 12.5
 
 
-def test_explicit_geometry_beats_cache(cache):
-    m = _dia()
-    tuning.store("dia", np.float32, len(m.offsets), m.shape[0],
-                 {"lanes": 128, "block_rows": 8}, 1.0)
-    op = PaddedDIA.from_dia(m, lanes=256, block_rows=8)
-    assert (op.lanes, op.block_rows) == (256, 8)
-    # partial override: the unspecified half still comes from the cache
-    op2 = PaddedDIA.from_dia(m, block_rows=8)
-    assert (op2.lanes, op2.block_rows) == (128, 8)
+def test_dtype_and_pattern_keys_are_separate(cache):
+    A, B = _csr(12), _csr(13)
+    sa = tuning.pattern_sig(A.shape[0], A.nnz, A.indptr, A.indices)
+    sb = tuning.pattern_sig(B.shape[0], B.nnz, B.indptr, B.indices)
+    assert sa != sb
+    assert sa == tuning.pattern_sig(A.shape[0], A.nnz, A.indptr, A.indices)
+    tuning.store_layout(sa, np.float32, "dia5", 1.0)
+    assert tuning.lookup_layout(sa, np.float64) is None
+    assert tuning.lookup_layout(sb, np.float32) is None
 
 
-def test_defaults_when_no_entry_and_when_corrupt(cache):
-    m = _dia()
-    op = PaddedDIA.from_dia(m)
-    assert (op.lanes, op.block_rows) == (LANES, BLOCK_ROWS)
+def test_corrupt_cache_degrades_to_no_entry(cache):
     with open(cache, "w") as f:
         f.write("{not json")
     tuning._MEM.update(path=None, mtime=None, data={})
-    op2 = PaddedDIA.from_dia(m)  # degrade to defaults, no raise
-    assert (op2.lanes, op2.block_rows) == (LANES, BLOCK_ROWS)
+    assert tuning.lookup_layout("0" * 16, np.float32) is None
+    tuning.store_layout("0" * 16, np.float32, "ell", 0.1)  # rewrites cleanly
+    assert tuning.lookup_layout("0" * 16, np.float32) == "ell"
 
 
-def test_dtype_and_bandcount_keys_are_separate(cache):
-    m = _dia()
-    tuning.store("dia", np.float32, len(m.offsets), m.shape[0],
-                 {"lanes": 128, "block_rows": 8}, 1.0)
-    assert tuning.lookup("dia", np.float64, len(m.offsets), m.shape[0]) is None
-    assert tuning.lookup("dia", np.float32, len(m.offsets) + 2,
-                         m.shape[0]) is None
-    assert tuning.lookup("cdia", np.float32, len(m.offsets),
-                         m.shape[0]) is None
-    assert tuning.lookup("dia", np.float32, len(m.offsets),
-                         m.shape[0]) is not None
-
-
-def test_tune_complex_persists_and_resolves(cache):
-    A, _, _ = problems.complex_symmetric_grid_with_diag(
-        (12, 12), dtype=np.complex64
-    )
-    m = A.to_dia()
-    cands = ((128, 8), (256, 8))
-    op = tuning.tune_complex_padded_dia(m, candidates=cands, iters=3)
-    assert isinstance(op, ComplexPaddedDIA)
-    assert (op.lanes, op.re.block_rows) in cands
-    op2 = ComplexPaddedDIA.from_dia(m)
-    assert (op2.lanes, op2.re.block_rows) == (op.lanes, op.re.block_rows)
-    # the complex entry keys under "cdia" with the complex dtype
-    saved = json.load(open(cache))
-    assert any(k.startswith("cdia|") and "complex64" in k for k in saved)
-
-
-def test_invalid_candidates_are_skipped(cache):
-    m = _dia()
-    # lanes=1 makes hr huge/geometry degenerate for some paths; a candidate
-    # that raises must be skipped, and the sweep still returns a winner
-    op = tuning.tune_padded_dia(
-        m, candidates=((-1, -1), (128, 8)), iters=2
-    )
-    assert isinstance(op, PaddedDIA)
-    assert (op.lanes, op.block_rows) == (128, 8)
+def test_time_step_is_positive_per_apply():
+    dia = _csr().to_dia()
+    x = jnp.ones(dia.shape[0], jnp.float32)
+    t = tuning._time_step(lambda v: dia.matvec(v) * jnp.float32(0.125), x, 5)
+    assert 0 < t < 10.0
